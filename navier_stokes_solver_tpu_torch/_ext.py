@@ -1,0 +1,88 @@
+"""Build and load the package's CUDA kernels (nvcc + ctypes).
+
+The sources under ``csrc/`` have a plain C interface, so they compile in
+seconds with ``nvcc`` alone (no PyTorch headers) into one shared library,
+loaded with ctypes.  The build runs at first use, from the sources in the
+checkout, into ``build/`` next to this file (listed in ``.gitignore``); the
+library's name carries a hash of the sources and flags, so an edited source
+is never served by a stale build.  A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+__all__ = ["BUILD_DIR", "SOURCES", "build", "load", "error_string"]
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+SOURCES = (os.path.join(_PKG, "csrc", "cell_apply_f.cu"),)
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_c_ptr, _c_int, _c_double = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def build() -> tuple[str, str]:
+    """Compile the kernels if this version is not built yet.
+
+    Returns ``(library path, compiler log)``; the log holds ptxas's
+    register and shared-memory report when this call compiled, else "".
+    """
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    path = os.path.join(BUILD_DIR, f"libnstt_kernels-{h.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    return path, proc.stdout + proc.stderr
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    lib = ctypes.CDLL(build()[0])
+    lib.nstt_cell_apply_f.argtypes = [
+        _c_int, _c_int, _c_int,  # is_f64, n_v, stokes
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # x, uq, guq, w, tabs
+        _c_double, _c_double,  # nu, inv_dt
+        _c_ptr, _c_int, _c_ptr,  # y, C, stream
+    ]
+    lib.nstt_cell_apply_f.restype = _c_int
+    lib.nstt_error_string.argtypes = [_c_int]
+    lib.nstt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def error_string(err: int) -> str:
+    return f"{err}: {load().nstt_error_string(err).decode()}"

@@ -1,0 +1,471 @@
+"""Matrix-free cell-local operators on the structured Taylor-Hood grid.
+
+The port of the JAX package's ``ops/matfree.py`` (single-device part), which
+replaces the reference's assembled Jacobian / residual
+(``NSSolver::assemble_system``, NSSolver.cpp:313-599) and Trilinos SpMV.
+Each operator application is:
+
+    strided gather (cell-local DoFs)
+      -> einsum against reference-element tables
+      -> pointwise physics at quadrature points
+      -> einsum with test functions
+      -> ordered strided scatter-add back to the node lattice
+
+The velocity block ``apply_F`` runs the middle three steps as one fused
+per-cell kernel (``ops/cell_kernel.py``).  The voxelized cylinder is
+handled by masking inactive cells (``disc.cell_mask``); lattice nodes that
+do not exist in the reference triangulation behave as identity rows.
+
+Sign conventions follow the reference exactly, including the regime split:
+Stokes / first-iteration regime (NSSolver.cpp:381-409) versus the Newton
+regime (NSSolver.cpp:411-519), which adds linearized convection and the
+implicit-Euler mass term and flips the continuity coupling sign.
+Dirichlet rows follow ``MatrixTools::apply_boundary_values`` with
+``eliminate_columns = false`` (NSSolver.cpp:596-597): constrained rows
+become ``diag * x_i`` and the rhs entry ``diag * g_i``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from navier_stokes_solver_tpu_torch.ops.blocks import Blocks
+from navier_stokes_solver_tpu_torch.ops.cell_kernel import cell_apply_F
+from navier_stokes_solver_tpu_torch.ops.disc import Disc
+
+__all__ = [
+    "LinearizationQ",
+    "eval_state",
+    "apply_F",
+    "apply_B",
+    "apply_Bt",
+    "apply_Mp",
+    "apply_jacobian",
+    "residual",
+    "dirichlet_values",
+    "diag_F",
+    "diag_Mp",
+    "lift_drag_forces",
+]
+
+
+# ---------------------------------------------------------------------------
+# Gather / scatter between node lattices and cell-local layout
+# ---------------------------------------------------------------------------
+
+
+def _gather(x: torch.Tensor, k: int, ny: int, nx: int) -> torch.Tensor:
+    """Gather cell-local DoFs from a degree-k lattice.
+
+    ``x``: [..., NY, NX] -> [n_loc, ..., ny, nx] (contiguous), where local
+    node m = a * (k+1) + b sits at lattice position (k*iy + a, k*ix + b).
+    One strided view of ``x`` and one copy.
+    """
+    lead = x.shape[:-2]
+    sY, sX = x.stride()[-2:]
+    view = x.as_strided(
+        (k + 1, k + 1) + lead + (ny, nx),
+        (sY, sX) + x.stride()[:-2] + (k * sY, k * sX),
+        x.storage_offset(),
+    )
+    return view.reshape(((k + 1) ** 2,) + lead + (ny, nx))
+
+
+def _scatter(loc: torch.Tensor, k: int, ny: int, nx: int) -> torch.Tensor:
+    """Scatter-add cell-local contributions onto the degree-k lattice.
+
+    ``loc``: [n_loc, ..., ny, nx] -> [..., NY, NX].  Every lattice node sums
+    its (at most four) contributions in ascending local index m, as the
+    JAX package's sum of dilated pads does -- so the result is the same
+    ordered sum, bit for bit, and the same on every run (no atomics).  The
+    local nodes are added in four groups -- (a < k, b < k), (a < k, b = k),
+    (a = k, b < k), (a = k, b = k) -- each one strided in-place add: within
+    a group no two contributions meet, and across groups the order at
+    every node is ascending m.
+    """
+    lead = loc.shape[1:-2]
+    out = loc.new_zeros(lead + (k * ny + 1, k * nx + 1))
+    L = loc.reshape((k + 1, k + 1) + lead + (ny, nx))
+    nd = len(lead)
+    # loc axes after the reshape: (a, b, *lead, iy, ix)
+    lead_ax = tuple(range(2, 2 + nd))
+    iy, ix = 2 + nd, 3 + nd
+    inner = out[..., : k * ny, : k * nx]
+    # (a < k, b < k): lattice (k*iy + a, k*ix + b) inside the lower-left block
+    inner.unflatten(-1, (nx, k)).unflatten(-3, (ny, k)).add_(
+        L[:k, :k].permute(lead_ax + (iy, 0, ix, 1))
+    )
+    # (a < k, b = k): columns k*(ix+1)
+    out[..., : k * ny, k::k].unflatten(-2, (ny, k)).add_(
+        L[:k, k].permute(tuple(a - 1 for a in lead_ax) + (iy - 1, 0, ix - 1))
+    )
+    # (a = k, b < k): rows k*(iy+1)
+    out[..., k::k, : k * nx].unflatten(-1, (nx, k)).add_(
+        L[k, :k].permute(tuple(a - 1 for a in lead_ax) + (iy - 1, ix - 1, 0))
+    )
+    # (a = k, b = k)
+    out[..., k::k, k::k].add_(L[k, k])
+    return out
+
+
+def _gather_v(disc: Disc, u: torch.Tensor) -> torch.Tensor:
+    return _gather(u, disc.deg_v, disc.ny, disc.nx)  # [n_v, 2, ny, nx]
+
+
+def _gather_p(disc: Disc, p: torch.Tensor) -> torch.Tensor:
+    return _gather(p, disc.deg_p, disc.ny, disc.nx)  # [n_p, ny, nx]
+
+
+def _scatter_v(disc: Disc, loc: torch.Tensor) -> torch.Tensor:
+    return _scatter(loc, disc.deg_v, disc.ny, disc.nx)
+
+
+def _scatter_p(disc: Disc, loc: torch.Tensor) -> torch.Tensor:
+    return _scatter(loc, disc.deg_p, disc.ny, disc.nx)
+
+
+# ---------------------------------------------------------------------------
+# Quadrature-point evaluation (deal.II FEValues::get_function_{values,gradients})
+# ---------------------------------------------------------------------------
+
+
+def _eval_v(disc: Disc, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Velocity values [n_q, 2, ny, nx] and physical gradients
+    [n_q, 2(comp), 2(dim), ny, nx] at volume quadrature points (both
+    contiguous: the fused cell kernel reads them directly)."""
+    loc = _gather_v(disc, u)
+    vals = torch.einsum("qm,mcyx->qcyx", disc.phi_v, loc).contiguous()
+    gx = torch.einsum("qm,mcyx->qcyx", disc.dphi_v[:, :, 0], loc) / disc.hx
+    gy = torch.einsum("qm,mcyx->qcyx", disc.dphi_v[:, :, 1], loc) / disc.hy
+    return vals, torch.stack([gx, gy], dim=2)
+
+
+def _eval_p(disc: Disc, p: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("qn,nyx->qyx", disc.phi_p, _gather_p(disc, p))
+
+
+class LinearizationQ(NamedTuple):
+    """Current Newton state evaluated at quadrature points."""
+
+    u: torch.Tensor  # [n_q, 2, ny, nx]
+    gradu: torch.Tensor  # [n_q, 2, 2, ny, nx]
+    p: torch.Tensor | None  # [n_q, ny, nx]
+
+
+def eval_state(disc: Disc, st: Blocks) -> LinearizationQ:
+    vals, grads = _eval_v(disc, st.u)
+    return LinearizationQ(u=vals, gradu=grads, p=_eval_p(disc, st.p))
+
+
+# ---------------------------------------------------------------------------
+# Projection back onto test functions (the transpose of evaluation)
+# ---------------------------------------------------------------------------
+
+
+def _project_v(disc: Disc, f_val, f_grad) -> torch.Tensor:
+    """R[m,c] = sum_q JxW (f_val[q,c] phi_m + f_grad[q,c,:] . grad phi_m),
+    masked by active cells, scattered to the velocity lattice.
+
+    Either of ``f_val`` [n_q,2,ny,nx] / ``f_grad`` [n_q,2,2,ny,nx] may be None.
+    """
+    w = disc.w_q
+    mask = disc.cell_mask
+    loc = None
+    if f_val is not None:
+        phi_w = disc.phi_v * w[:, None]
+        loc = torch.einsum("qm,qcyx->mcyx", phi_w, f_val * mask)
+    if f_grad is not None:
+        dxw = disc.dphi_v[:, :, 0] * (w / disc.hx)[:, None]
+        dyw = disc.dphi_v[:, :, 1] * (w / disc.hy)[:, None]
+        g = f_grad * mask
+        term = torch.einsum("qm,qcyx->mcyx", dxw, g[:, :, 0]) + torch.einsum(
+            "qm,qcyx->mcyx", dyw, g[:, :, 1]
+        )
+        loc = term if loc is None else loc + term
+    return _scatter_v(disc, loc)
+
+
+def _project_p(disc: Disc, f_val: torch.Tensor) -> torch.Tensor:
+    """R[n] = sum_q JxW f_val[q] psi_n, masked and scattered."""
+    phi_w = disc.phi_p * disc.w_q[:, None]
+    return _scatter_p(disc, torch.einsum("qn,qyx->nyx", phi_w, f_val * disc.cell_mask))
+
+
+# ---------------------------------------------------------------------------
+# Block operators
+# ---------------------------------------------------------------------------
+
+
+def _convection_linearized(linq: LinearizationQ, xv, xg) -> torch.Tensor:
+    """Frechet derivative of the convective term at u_k (NSSolver.cpp:424-441):
+    conv[c] = sum_l u_k[l] * dx[c,l] + xv[l] * gradu_k[c,l]."""
+    return torch.einsum("qlyx,qclyx->qcyx", linq.u, xg) + torch.einsum(
+        "qlyx,qclyx->qcyx", xv, linq.gradu
+    )
+
+
+def _apply_F_unfused(disc: Disc, nu, inv_dt, linq, x_u, *, stokes: bool):
+    """The separate eval / physics / project pipeline of the JAX package's
+    XLA path -- the reference the tests hold ``apply_F`` against."""
+    xv, xg = _eval_v(disc, x_u)
+    if stokes:
+        return _project_v(disc, None, nu * xg)
+    f_val = _convection_linearized(linq, xv, xg) + inv_dt * xv
+    return _project_v(disc, f_val, nu * xg)
+
+
+def apply_F(
+    disc: Disc,
+    nu: float,
+    inv_dt: float,
+    linq: LinearizationQ | None,
+    x_u: torch.Tensor,
+    *,
+    stokes: bool,
+    bc_diag: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Velocity-block (0,0) operator application.
+
+    Stokes regime: nu * (grad du, grad v) (NSSolver.cpp:383-388).
+    Newton regime: adds linearized convection + du . v / dt
+    (NSSolver.cpp:424-453).  ``inv_dt = 0`` gives the stationary variant.
+
+    Gather, the fused cell kernel (its plain version for CPU tensors) and
+    the scatter run on every call, in both dtypes.
+
+    ``bc_diag``: if given, constrained rows are replaced by ``diag * x``
+    (the post-``apply_boundary_values`` matrix, as used for preconditioner
+    inner solves on the velocity block, NSSolver.cpp:609).
+    """
+    loc = cell_apply_F(disc, nu, inv_dt, linq, _gather_v(disc, x_u), stokes=stokes)
+    y = _scatter_v(disc, loc)
+    if bc_diag is not None:
+        y = torch.where(disc.u_dirichlet, bc_diag * x_u, y)
+        y = torch.where(disc.u_active, y, x_u)
+    return y
+
+
+def _eye2(disc: Disc) -> torch.Tensor:
+    return torch.eye(2, dtype=disc.dtype, device=disc.device)[None, :, :, None, None]
+
+
+def apply_Bt(
+    disc: Disc, x_p: torch.Tensor, *, zero_dirichlet_rows: bool = False
+) -> torch.Tensor:
+    """Pressure-gradient coupling into velocity rows: -(div v, dp)
+    (same sign in both regimes: NSSolver.cpp:391-393 and :456-458).
+
+    ``zero_dirichlet_rows=True`` gives the post-BC block(0,1) whose
+    constrained rows were eliminated (NSSolver.cpp:649).
+    """
+    pv = _eval_p(disc, x_p)
+    y = _project_v(disc, None, -pv[:, None, None] * _eye2(disc))
+    if zero_dirichlet_rows:
+        y = torch.where(disc.u_dirichlet | ~disc.u_active, 0.0, y)
+    return y
+
+
+def apply_B(disc: Disc, x_u: torch.Tensor, *, stokes: bool) -> torch.Tensor:
+    """Continuity coupling into pressure rows: -(div du, q) in the Stokes
+    regime (NSSolver.cpp:401-403), +(div du, q) in the Newton regime
+    (NSSolver.cpp:461-463)."""
+    _, xg = _eval_v(disc, x_u)
+    div = xg[:, 0, 0] + xg[:, 1, 1]
+    return _project_p(disc, -div if stokes else div)
+
+
+def apply_Mp(disc: Disc, nu, x_p: torch.Tensor) -> torch.Tensor:
+    """Pressure mass matrix scaled by 1/nu (NSSolver.cpp:406-408), with
+    identity on non-existent pressure lanes."""
+    y = _project_p(disc, _eval_p(disc, x_p) / nu)
+    return torch.where(disc.p_active, y, x_p)
+
+
+def apply_jacobian(
+    disc: Disc,
+    nu,
+    inv_dt,
+    linq: LinearizationQ | None,
+    bc_diag: torch.Tensor,
+    x: Blocks,
+    *,
+    stokes: bool,
+) -> Blocks:
+    """Full 2x2 block Jacobian application with Dirichlet row elimination.
+
+    Matches the system solved by the reference's outer Krylov
+    (NSSolver.cpp:601-672): rows at Dirichlet velocity DoFs are
+    ``diag * x`` (columns NOT eliminated), non-existent lattice lanes are
+    identity.  It evaluates and projects on its own (one gather of u for
+    the F, B and Bt terms together), so it does not go through the fused
+    cell kernel.
+    """
+    xv, xg = _eval_v(disc, x.u)
+    pv = _eval_p(disc, x.p)
+    f_grad = nu * xg - pv[:, None, None] * _eye2(disc)
+    if stokes:
+        yu = _project_v(disc, None, f_grad)
+    else:
+        f_val = _convection_linearized(linq, xv, xg) + inv_dt * xv
+        yu = _project_v(disc, f_val, f_grad)
+    div = xg[:, 0, 0] + xg[:, 1, 1]
+    yp = _project_p(disc, -div if stokes else div)
+
+    yu = torch.where(disc.u_dirichlet, bc_diag * x.u, yu)
+    yu = torch.where(disc.u_active, yu, x.u)
+    yp = torch.where(disc.p_active, yp, x.p)
+    return Blocks(u=yu, p=yp)
+
+
+def residual(
+    disc: Disc,
+    nu,
+    inv_dt,
+    st: Blocks,
+    u_old: torch.Tensor,
+    bc_diag: torch.Tensor,
+    *,
+    stokes: bool,
+    inlet_amp: float,
+    p_out: float = 1.0,
+    consistent: bool = False,
+) -> Blocks:
+    """Assembled rhs = -R(u_k) after BC application.
+
+    Newton regime terms (all negated, NSSolver.cpp:477-519): time term
+    (u - u_old) . v / dt, viscous a(u_k, v), convective c(u_k; u_k, v),
+    +b(v, p_k), +b(u_k, q); plus the outlet Neumann term (:528-551) and
+    Dirichlet rows ``diag * g`` (:564-598).  Stokes regime: rhs = Neumann
+    term only (the i-loop is skipped, NSSolver.cpp:472-475).
+
+    ``inlet_amp``: amplitude of the inlet parabola lifted into the Dirichlet
+    rows -- U_m on the very first assembly, 0 afterwards (increment
+    formulation, NSSolver.cpp:573-580).
+
+    ``consistent``: ``False`` keeps the reference's Newton-regime continuity
+    rhs, +(q, div u_k) (NSSolver.cpp:517-519), whose sign disagrees with
+    the Jacobian's +(q, div du) row (NSSolver.cpp:461-463); ``True``
+    assembles the Jacobian-consistent -(q, div u_k).
+    """
+    if stokes:
+        ru = p_out * disc.neumann_rhs1
+        rp = disc.zeros_p()
+    else:
+        linq = eval_state(disc, st)
+        u_old_q, _ = _eval_v(disc, u_old)
+        conv = torch.einsum("qlyx,qclyx->qcyx", linq.u, linq.gradu)
+        f_val = -inv_dt * (linq.u - u_old_q) - conv
+        f_grad = -nu * linq.gradu + linq.p[:, None, None] * _eye2(disc)
+        ru = _project_v(disc, f_val, f_grad) + p_out * disc.neumann_rhs1
+        div = linq.gradu[:, 0, 0] + linq.gradu[:, 1, 1]
+        rp = _project_p(disc, -div if consistent else div)
+
+    g = dirichlet_values(disc, inlet_amp)
+    ru = torch.where(disc.u_dirichlet, bc_diag * g, ru)
+    ru = torch.where(disc.u_active, ru, 0.0)
+    rp = torch.where(disc.p_active, rp, 0.0)
+    return Blocks(u=ru, p=rp)
+
+
+def dirichlet_values(disc: Disc, inlet_amp: float) -> torch.Tensor:
+    """Dirichlet boundary values g: inlet parabola (x-component) scaled by
+    ``inlet_amp`` on id-7 nodes, zero on ids 6/10 (NSSolver.cpp:573-594)."""
+    gx = torch.where(disc.u_inlet, inlet_amp * disc.inlet_profile1[:, None], 0.0)
+    return torch.stack([gx, torch.zeros_like(gx)])
+
+
+# ---------------------------------------------------------------------------
+# Diagonals (for BC rows and the Jacobi smoother layer)
+# ---------------------------------------------------------------------------
+
+
+def diag_F(
+    disc: Disc, nu, inv_dt, linq: LinearizationQ | None, *, stokes: bool
+) -> torch.Tensor:
+    """Diagonal of the velocity block, matrix-free.
+
+    Per cell, per local dof (m, c) (derived from NSSolver.cpp:424-453):
+      JxW * [ nu |grad phi_m|^2
+              + (Newton) phi_m^2 / dt + phi_m (u_k . grad phi_m)
+              + (Newton) phi_m^2 (grad u_k)_{cc} ].
+    Non-existent lanes get 1.0 so the result is safely invertible.
+    """
+    n_v = disc.phi_v.shape[1]
+    w = disc.w_q
+    phi = disc.phi_v
+    dx = disc.dphi_v[:, :, 0] / disc.hx
+    dy = disc.dphi_v[:, :, 1] / disc.hy
+
+    visc = torch.einsum("q,qm->m", w, nu * (dx * dx + dy * dy))
+    loc = visc[:, None, None, None].expand(n_v, 2, disc.ny, disc.nx)
+    if not stokes:
+        mass = torch.einsum("q,qm->m", w, phi * phi) * inv_dt
+        loc = loc + mass[:, None, None, None]
+        # field terms: phi (u_k . grad phi)  and  phi^2 (grad u_k)_{cc}
+        conv1 = torch.einsum(
+            "qm,qyx->myx", w[:, None] * phi * dx, linq.u[:, 0]
+        ) + torch.einsum("qm,qyx->myx", w[:, None] * phi * dy, linq.u[:, 1])
+        phi2w = w[:, None] * phi * phi
+        conv2 = torch.stack(
+            [
+                torch.einsum("qm,qyx->myx", phi2w, linq.gradu[:, 0, 0]),
+                torch.einsum("qm,qyx->myx", phi2w, linq.gradu[:, 1, 1]),
+            ],
+            dim=1,
+        )  # [n_v, 2, ny, nx]
+        loc = loc + conv1[:, None] + conv2
+    d = _scatter_v(disc, loc * disc.cell_mask)
+    return torch.where(disc.u_active, d, 1.0)
+
+
+def diag_Mp(disc: Disc, nu) -> torch.Tensor:
+    """Diagonal of the (1/nu-scaled) pressure mass matrix."""
+    n_p = disc.phi_p.shape[1]
+    loc = torch.einsum("q,qn->n", disc.w_q, disc.phi_p * disc.phi_p) / nu
+    d = _scatter_p(
+        disc, loc[:, None, None].expand(n_p, disc.ny, disc.nx) * disc.cell_mask
+    )
+    return torch.where(disc.p_active, d, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Lift / drag face integral (NSSolver.cpp:839-938)
+# ---------------------------------------------------------------------------
+
+
+def lift_drag_forces(disc: Disc, nu, st: Blocks) -> tuple[torch.Tensor, torch.Tensor]:
+    """Integrate the full stress over the cylinder boundary (id-10 faces).
+
+    sigma = nu (grad u + grad u^T) - p I; per face quadrature point the force
+    is -sigma . n * JxW with n the cell-outward normal (pointing into the
+    cylinder), matching NSSolver.cpp:892-927.  Returns (drag, lift) =
+    (F_x, F_y) as 0-dim tensors.
+    """
+    t = disc.tables
+    put = lambda a: torch.as_tensor(a, device=disc.device).to(disc.dtype)
+    u_loc = _gather_v(disc, st.u)  # [n_v, 2, ny, nx]
+    p_loc = _gather_p(disc, st.p)
+    face_h = (disc.hy, disc.hy, disc.hx, disc.hx)
+    drag = torch.zeros((), dtype=disc.dtype, device=disc.device)
+    lift = torch.zeros((), dtype=disc.dtype, device=disc.device)
+    for f in range(4):
+        mask = disc.cyl_face_mask[f]
+        dphi = put(t.dphi_v_face[f])
+        phip = put(t.phi_p_face[f])
+        wf = put(t.w_qf) * face_h[f]
+        n = put(t.normals[f])
+
+        gx = torch.einsum("qm,mcyx->qcyx", dphi[:, :, 0], u_loc) / disc.hx
+        gy = torch.einsum("qm,mcyx->qcyx", dphi[:, :, 1], u_loc) / disc.hy
+        grad = torch.stack([gx, gy], dim=2)  # [qf, c, d, ny, nx]
+        pv = torch.einsum("qn,nyx->qyx", phip, p_loc)
+
+        sig = nu * (grad + grad.transpose(1, 2))
+        sig = sig - pv[:, None, None] * _eye2(disc)
+        # force[c] = -sum_d sig[c,d] n[d] * JxW_f, masked to id-10 faces
+        force = -torch.einsum("qcdyx,d,q->cyx", sig, n, wf)
+        drag = drag + torch.sum(force[0] * mask)
+        lift = lift + torch.sum(force[1] * mask)
+    return drag, lift
