@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels (nvcc + ctypes).
 
 The sources under ``csrc/`` have a plain C interface, so they compile in
-seconds with ``nvcc`` alone (no PyTorch headers) into one shared library,
-loaded with ctypes.  The build runs at first use, from the sources in the
-checkout, into ``build/`` next to this file (listed in ``.gitignore``); the
-library's name carries a hash of the sources and flags, so an edited source
-is never served by a stale build.  A failed build raises.
+seconds with ``nvcc`` alone (no PyTorch headers).  The build runs at first
+use, from the sources in the checkout, into ``build/`` next to this file
+(listed in ``.gitignore``): one ``nvcc -c`` per source, all started
+together, then one link into a shared library, loaded with ctypes.  The
+library's name carries a hash of the sources and flags, so an edited
+source is never served by a stale build.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ import subprocess
 __all__ = ["BUILD_DIR", "SOURCES", "build", "load", "error_string"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-SOURCES = (os.path.join(_PKG, "csrc", "cell_apply_f.cu"),)
+SOURCES = tuple(
+    os.path.join(_PKG, "csrc", name) for name in ("cell_apply_f.cu", "scatter_v.cu")
+)
 BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -42,6 +45,23 @@ def _nvcc() -> str:
     return found
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every process, then raise on the first that failed."""
+    logs = [proc.communicate()[0] for _, proc in procs]
+    for (cmd, proc), out in zip(procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}"
+            )
+    return "".join(logs)
+
+
+def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
+    return cmd, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+
+
 def build() -> tuple[str, str]:
     """Compile the kernels if this version is not built yet.
 
@@ -56,16 +76,16 @@ def build() -> tuple[str, str]:
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in SOURCES]
+    log = _run([_start([nvcc, *NVCC_FLAGS, "-c", s, "-o", o]) for s, o in zip(SOURCES, objs)])
+    tmp = f"{path}.{tag}"
+    _run([_start([nvcc, *ARCH, "-shared", "-o", tmp, *objs])])
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    return path, proc.stdout + proc.stderr
+    return path, log
 
 
 @functools.cache
@@ -73,12 +93,21 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     lib = ctypes.CDLL(build()[0])
     lib.nstt_cell_apply_f.argtypes = [
-        _c_int, _c_int, _c_int,  # is_f64, n_v, stokes
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # x, uq, guq, w, tabs
+        _c_int, _c_int, _c_int,  # is_f64, k, stokes
+        _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,  # x, 5 strides, lattice
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # uq, guq, w, tabs
         _c_double, _c_double,  # nu, inv_dt
-        _c_ptr, _c_int, _c_ptr,  # y, C, stream
+        _c_ptr, _c_int, _c_int, _c_ptr,  # y, nx, ny, stream
     ]
     lib.nstt_cell_apply_f.restype = _c_int
+    lib.nstt_scatter_v.argtypes = [
+        _c_int, _c_int,  # is_f64, k
+        _c_ptr, _c_int, _c_int,  # loc, nx, ny
+        _c_ptr, _c_int, _c_int, _c_int,  # x, its 3 strides
+        _c_ptr, _c_ptr, _c_ptr,  # diag, dirichlet, active
+        _c_ptr, _c_ptr,  # out, stream
+    ]
+    lib.nstt_scatter_v.restype = _c_int
     lib.nstt_error_string.argtypes = [_c_int]
     lib.nstt_error_string.restype = ctypes.c_char_p
     return lib

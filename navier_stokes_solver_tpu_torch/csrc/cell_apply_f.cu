@@ -2,7 +2,7 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 // navier_stokes_solver_tpu/ops/pallas_cell.py::_run.  For every cell c it
-// computes, with x the gathered velocity DoFs of both components,
+// computes, with x the velocity DoFs of the cell, both components,
 //
 //   g = (Dx x, Dy x)           gradients at the n_q quadrature points
 //   v = P x                    values (Newton regime only)
@@ -12,148 +12,250 @@
 //
 // with w = JxW times the active-cell mask.
 //
-// Layouts (C = ny * nx cells, the contiguous axis of every array):
-//   x, y  [n_v, 2, C]      local DoF m, component, cell
+// Input.  x is read through the five element strides of a cell-local view
+// [k+1, k+1, 2, ny, nx]: element [a, b, comp, iy, ix] is local DoF
+// m = a (k+1) + b of component comp of cell (iy, ix).  On the velocity
+// lattice [2, NY, NX] (ops/lattice.py::lattice_view, "lattice" below) that
+// view reads the lattice in place, and neighbouring cells share their edge
+// nodes; on gathered DoFs x_loc [n_v, 2, ny, nx] they do not.
+//
+// Other layouts (C = ny * nx cells, the contiguous axis):
+//   y     [n_v, 2, C]      local DoF m, component, cell
 //   uq    [n_q, 2, C]      u_k at the quadrature points
 //   guq   [n_q, 2, 2, C]   grad u_k: component, derivative direction
 //   w     [n_q, C]
 //   tabs  [3, n_q, n_v]    P, d/dx (scaled by 1/hx), d/dy (scaled by 1/hy)
 //
-// Design: one thread per cell.  Each cell reads ~(2 n_v + 7 n_q) words and
-// writes 2 n_v while doing ~10 n_q n_v flops per component: per byte, a
-// memory-bound kernel.  At 100x70 (C = 7,000) it is bound by latency
-// instead: one thread per cell gives about one 64-thread block per SM, too
-// few warps to hide the load latency.  The design keeps the bytes minimal
-// -- consecutive threads take consecutive cells, so every load and store
-// of a warp is coalesced; the tables sit in shared memory and are read as
-// warp-wide broadcasts; gradients, fluxes and the 2 n_v accumulators stay
-// in registers; every input is read once -- and leaves filling the card to
-// later work: more threads per cell (per quadrature point or per local
-// DoF) and fusing the gather.  The ragged end of C is masked here (no
-// padding).  The kernel allocates nothing and runs on the caller's stream.
+// Bound.  At 100x70 f32 in the Newton regime one call reads the lattice
+// (508 KB), u_k, grad u_k and w (3.1 MB) and writes y (896 KB): ~4.5 MB,
+// 1.4 us at 3.35 TB/s; its ~46 MFLOP take 0.7 us at 67 TFLOP/s.  It is
+// bound by memory (Stokes: ~1.85 MB, 0.55 us).
+//
+// Design.  A block owns a tile of T <= 20 consecutive cells of one cell
+// row (T = nx / ceil(nx / 20), rounded up, so the tiles of a row are even:
+// 350 blocks of 20 cells at 100x70) and runs n_q T threads in three steps:
+//   1. stage: the three tables, and the tile's strip of x, [2][k+1][k T + 1]
+//      lattice nodes (each shared edge node once), into shared memory,
+//      loading along the lattice row (coalesced on a unit-stride row);
+//   2. evaluate: one thread per (quadrature point q, cell) forms g (and v)
+//      for both components from shared memory, reads u_k, grad u_k and w
+//      at (q, c) -- coalesced along c -- and writes the 4 (Stokes) or 6
+//      (Newton) weighted fluxes to shared memory;
+//   3. project: one thread per (local DoF m, cell) sums y[m] over q and
+//      writes y, coalesced.
+// That is 16 threads per Q3 cell (112k at 100x70) where the first version
+// ran one, with a few tens of registers each instead of 157-255.  Every
+// input is read once.  On the H100, tiles of 20 cells ran 18-21% faster at
+// 100x70 than tiles of 25 (at most 32), and faster than tiles of 16; loading
+// each thread's u_k, grad u_k and w before the staging, to overlap their
+// latency, changed the time by under 2% and was left out (PERF.md).
+//
+// The arithmetic is the first version's, rounding step for rounding step
+// (g over m ascending; y over q ascending as a = dx fgx + dy fgy;
+// a += p fv; y += a, with the fused multiply-adds it compiled to written
+// out), so its f32 results are the same bit for bit.
+//
+// Tensor cores are not used: their only f32 path is TF32, about three
+// decimal digits, which the port turns off; f64 could use DMMA, but f64 is
+// off the main path, and each contraction is only [16 x 16] by T cells.
+//
+// The kernel allocates nothing and runs on the caller's stream.
 //
 // Build (plain C interface, loaded with ctypes by _ext.py):
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o libnstt_kernels.so cell_apply_f.cu
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c \
+//        -Xcompiler -fPIC cell_apply_f.cu
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kMaxTile = 20;  // cells per block, at most
 
-template <typename T, int N, bool STOKES>
-__global__ void __launch_bounds__(kThreads)
-cell_apply_f_kernel(const T* __restrict__ x, const T* __restrict__ uq,
-                    const T* __restrict__ guq, const T* __restrict__ w,
-                    const T* __restrict__ tabs, T nu, T inv_dt,
-                    T* __restrict__ y, int C) {
+struct View {  // element strides of the [k+1, k+1, 2, ny, nx] input view
+  int a, b, comp, iy, ix;
+};
+
+// Arithmetic rounded exactly as written: nvcc's default contraction
+// (-fmad=true) may fuse a product into a neighbouring sum in either order,
+// and chose differently for the two components in the first version.
+// These keep its results while leaving the compiler no choice.
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float fmadd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fmadd(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+template <int K>
+struct Cell {
+  static constexpr int N = (K + 1) * (K + 1);        // n_v = n_q
+  static constexpr int kThreads = N * kMaxTile;      // per block, at most
+  static constexpr int kRow = (K + 1) * kMaxTile;    // strip row in shared memory
+};
+
+template <typename T, int K, bool STOKES>
+__global__ void __launch_bounds__(Cell<K>::kThreads)
+cell_apply_f_kernel(const T* __restrict__ x, View s, int lattice,
+                    const T* __restrict__ uq, const T* __restrict__ guq,
+                    const T* __restrict__ w, const T* __restrict__ tabs,
+                    T nu, T inv_dt, T* __restrict__ y, int nx, int ny,
+                    int tile) {
+  constexpr int N = Cell<K>::N;
+  constexpr int R = Cell<K>::kRow;
+  constexpr int NF = STOKES ? 4 : 6;  // fluxes per (q, cell)
   __shared__ T s_tab[3 * N * N];
+  __shared__ T s_x[2 * (K + 1) * R];
+  __shared__ T s_f[NF * N * kMaxTile];
+
+  const int C = nx * ny;
+  const int tiles = (nx + tile - 1) / tile;
+  const int iy = blockIdx.x / tiles;
+  const int ix0 = (blockIdx.x - iy * tiles) * tile;
+  const int tv = min(tile, nx - ix0);  // cells in this tile
+  const int c0 = iy * nx + ix0;
+
+  // Thread (j, t): cell t of the tile, quadrature point j in step 2 and
+  // local DoF j in step 3 (n_q = n_v).
+  const int j = threadIdx.x / tile;
+  const int t = threadIdx.x - j * tile;
+  const bool live = t < tv;
+  const int c = c0 + t;
+
+  // 1. stage.  Local node (tc, b) of the tile is strip column tc W + b,
+  // with W = k on the lattice (node b = k of cell tc is node 0 of cell
+  // tc + 1) and W = k + 1 on gathered input.
   for (int i = threadIdx.x; i < 3 * N * N; i += blockDim.x) s_tab[i] = tabs[i];
+  const int W = lattice ? K : K + 1;
+  const int ncols = W * (tv - 1) + K + 1;
+  const T* xt = x + iy * s.iy + ix0 * s.ix;
+  for (int i = threadIdx.x; i < 2 * (K + 1) * ncols; i += blockDim.x) {
+    const int r = i / ncols;  // comp * (k + 1) + a
+    const int u = i - r * ncols;
+    int tc, b;
+    if (lattice) {  // along the lattice row
+      tc = u / K;
+      b = u - tc * K;
+    } else {  // cells fastest: the contiguous axis of gathered input
+      tc = u % tv;
+      b = u / tv;
+    }
+    const int comp = r / (K + 1), a = r - comp * (K + 1);
+    s_x[r * R + tc * W + b] = xt[comp * s.comp + a * s.a + b * s.b + tc * s.ix];
+  }
   __syncthreads();
 
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
   const T* sP = s_tab;
   const T* sDx = s_tab + N * N;
   const T* sDy = s_tab + 2 * N * N;
+  const int fs = N * tile;  // s_f[f][q][t] at f * fs + q * tile + t
 
-  T x0[N], x1[N], y0[N], y1[N];
-#pragma unroll
-  for (int m = 0; m < N; ++m) {
-    x0[m] = x[(2 * m) * C + c];
-    x1[m] = x[(2 * m + 1) * C + c];
-    y0[m] = T(0);
-    y1[m] = T(0);
-  }
-
-#pragma unroll 1
-  for (int q = 0; q < N; ++q) {
-    const T* dxq = sDx + q * N;
-    const T* dyq = sDy + q * N;
-    const T* pq = sP + q * N;
+  // 2. evaluate at quadrature point q = j
+  if (live) {
+    const T* dxq = sDx + j * N;
+    const T* dyq = sDy + j * N;
+    const T* pq = sP + j * N;
+    const T* x0 = s_x + t * W;
+    const T* x1 = s_x + (K + 1) * R + t * W;
     T gx0 = T(0), gy0 = T(0), gx1 = T(0), gy1 = T(0), v0 = T(0), v1 = T(0);
 #pragma unroll
     for (int m = 0; m < N; ++m) {
-      gx0 += dxq[m] * x0[m];
-      gy0 += dyq[m] * x0[m];
-      gx1 += dxq[m] * x1[m];
-      gy1 += dyq[m] * x1[m];
+      const int off = (m / (K + 1)) * R + m % (K + 1);
+      const T xm0 = x0[off], xm1 = x1[off];
+      gx0 = fmadd(dxq[m], xm0, gx0);
+      gy0 = fmadd(dyq[m], xm0, gy0);
+      gx1 = fmadd(dxq[m], xm1, gx1);
+      gy1 = fmadd(dyq[m], xm1, gy1);
       if (!STOKES) {
-        v0 += pq[m] * x0[m];
-        v1 += pq[m] * x1[m];
+        v0 = fmadd(pq[m], xm0, v0);
+        v1 = fmadd(pq[m], xm1, v1);
       }
     }
-    const T wq = w[q * C + c];
-    const T fgx0 = nu * gx0 * wq, fgy0 = nu * gy0 * wq;
-    const T fgx1 = nu * gx1 * wq, fgy1 = nu * gy1 * wq;
-    T fv0 = T(0), fv1 = T(0);
+    const T wq = w[j * C + c];
+    T* f = s_f + threadIdx.x;
+    f[0] = mul(mul(nu, gx0), wq);
+    f[fs] = mul(mul(nu, gy0), wq);
+    f[2 * fs] = mul(mul(nu, gx1), wq);
+    f[3 * fs] = mul(mul(nu, gy1), wq);
     if (!STOKES) {
-      const T u0 = uq[(2 * q) * C + c], u1 = uq[(2 * q + 1) * C + c];
-      const T g00 = guq[(4 * q + 0) * C + c], g01 = guq[(4 * q + 1) * C + c];
-      const T g10 = guq[(4 * q + 2) * C + c], g11 = guq[(4 * q + 3) * C + c];
-      fv0 = (u0 * gx0 + u1 * gy0 + v0 * g00 + v1 * g01 + inv_dt * v0) * wq;
-      fv1 = (u0 * gx1 + u1 * gy1 + v0 * g10 + v1 * g11 + inv_dt * v1) * wq;
-    }
-#pragma unroll
-    for (int m = 0; m < N; ++m) {
-      T a0 = dxq[m] * fgx0 + dyq[m] * fgy0;
-      T a1 = dxq[m] * fgx1 + dyq[m] * fgy1;
-      if (!STOKES) {
-        a0 += pq[m] * fv0;
-        a1 += pq[m] * fv1;
-      }
-      y0[m] += a0;
-      y1[m] += a1;
+      const T u0 = uq[(2 * j) * C + c], u1 = uq[(2 * j + 1) * C + c];
+      const T g00 = guq[(4 * j + 0) * C + c], g01 = guq[(4 * j + 1) * C + c];
+      const T g10 = guq[(4 * j + 2) * C + c], g11 = guq[(4 * j + 3) * C + c];
+      // (u_k . grad) x + (x . grad) u_k + x / dt, summed left to right
+      T a0 = fmadd(u0, gx0, mul(u1, gy0));
+      T a1 = fmadd(u0, gx1, mul(u1, gy1));
+      a0 = fmadd(inv_dt, v0, fmadd(v1, g01, fmadd(v0, g00, a0)));
+      a1 = fmadd(inv_dt, v1, fmadd(v1, g11, fmadd(v0, g10, a1)));
+      f[4 * fs] = mul(a0, wq);
+      f[5 * fs] = mul(a1, wq);
     }
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int m = 0; m < N; ++m) {
-    y[(2 * m) * C + c] = y0[m];
-    y[(2 * m + 1) * C + c] = y1[m];
+  // 3. project onto local DoF m = j
+  if (live) {
+    T y0 = T(0), y1 = T(0);
+#pragma unroll 4
+    for (int q = 0; q < N; ++q) {
+      const T* f = s_f + q * tile + t;
+      const T dx = sDx[q * N + j], dy = sDy[q * N + j];
+      // the first version's contractions: dx first for component 0, dy
+      // first for component 1
+      T a0 = fmadd(dx, f[0], mul(dy, f[fs]));
+      T a1 = fmadd(dy, f[3 * fs], mul(dx, f[2 * fs]));
+      if (!STOKES) {
+        const T p = sP[q * N + j];
+        a0 = fmadd(p, f[4 * fs], a0);
+        a1 = fmadd(p, f[5 * fs], a1);
+      }
+      y0 = add(y0, a0);
+      y1 = add(y1, a1);
+    }
+    y[(2 * j) * C + c] = y0;
+    y[(2 * j + 1) * C + c] = y1;
   }
 }
 
-template <typename T, int N>
-void launch(int stokes, const void* x, const void* uq, const void* guq,
-            const void* w, const void* tabs, double nu, double inv_dt, void* y,
-            int C, cudaStream_t stream) {
-  const dim3 grid((C + kThreads - 1) / kThreads);
-  const T* args[5] = {static_cast<const T*>(x), static_cast<const T*>(uq),
-                      static_cast<const T*>(guq), static_cast<const T*>(w),
-                      static_cast<const T*>(tabs)};
-  if (stokes) {
-    cell_apply_f_kernel<T, N, true><<<grid, kThreads, 0, stream>>>(
-        args[0], args[1], args[2], args[3], args[4], T(nu), T(inv_dt),
-        static_cast<T*>(y), C);
-  } else {
-    cell_apply_f_kernel<T, N, false><<<grid, kThreads, 0, stream>>>(
-        args[0], args[1], args[2], args[3], args[4], T(nu), T(inv_dt),
-        static_cast<T*>(y), C);
-  }
+template <typename T, int K>
+void launch(int stokes, const void* x, View s, int lattice, const void* uq,
+            const void* guq, const void* w, const void* tabs, double nu,
+            double inv_dt, void* y, int nx, int ny, cudaStream_t stream) {
+  const int tiles = (nx + kMaxTile - 1) / kMaxTile;
+  const int tile = (nx + tiles - 1) / tiles;
+  const dim3 grid(tiles * ny), block(Cell<K>::N * tile);
+  auto kernel = stokes ? cell_apply_f_kernel<T, K, true>
+                       : cell_apply_f_kernel<T, K, false>;
+  kernel<<<grid, block, 0, stream>>>(
+      static_cast<const T*>(x), s, lattice, static_cast<const T*>(uq),
+      static_cast<const T*>(guq), static_cast<const T*>(w),
+      static_cast<const T*>(tabs), T(nu), T(inv_dt), static_cast<T*>(y), nx,
+      ny, tile);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a variant that does not exist.
-int nstt_cell_apply_f(int is_f64, int n_v, int stokes, const void* x,
+// k: velocity degree (2 or 3); s_*: element strides of the input view;
+// lattice: 1 when the view is a lattice's (shared edge nodes).  uq and guq
+// may be null in the Stokes regime.  Returns cudaGetLastError() after the
+// launch (0 on success), or cudaErrorInvalidValue for a variant that does
+// not exist.
+int nstt_cell_apply_f(int is_f64, int k, int stokes, const void* x, int s_a,
+                      int s_b, int s_comp, int s_iy, int s_ix, int lattice,
                       const void* uq, const void* guq, const void* w,
                       const void* tabs, double nu, double inv_dt, void* y,
-                      int C, void* stream) {
-  if (C <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_f64 && n_v == 16) {
-    launch<double, 16>(stokes, x, uq, guq, w, tabs, nu, inv_dt, y, C, s);
-  } else if (is_f64 && n_v == 9) {
-    launch<double, 9>(stokes, x, uq, guq, w, tabs, nu, inv_dt, y, C, s);
-  } else if (!is_f64 && n_v == 16) {
-    launch<float, 16>(stokes, x, uq, guq, w, tabs, nu, inv_dt, y, C, s);
-  } else if (!is_f64 && n_v == 9) {
-    launch<float, 9>(stokes, x, uq, guq, w, tabs, nu, inv_dt, y, C, s);
+                      int nx, int ny, void* stream) {
+  if (nx <= 0 || ny <= 0) return 0;
+  const View s{s_a, s_b, s_comp, s_iy, s_ix};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_f64 && k == 3) {
+    launch<double, 3>(stokes, x, s, lattice, uq, guq, w, tabs, nu, inv_dt, y, nx, ny, st);
+  } else if (is_f64 && k == 2) {
+    launch<double, 2>(stokes, x, s, lattice, uq, guq, w, tabs, nu, inv_dt, y, nx, ny, st);
+  } else if (!is_f64 && k == 3) {
+    launch<float, 3>(stokes, x, s, lattice, uq, guq, w, tabs, nu, inv_dt, y, nx, ny, st);
+  } else if (!is_f64 && k == 2) {
+    launch<float, 2>(stokes, x, s, lattice, uq, guq, w, tabs, nu, inv_dt, y, nx, ny, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

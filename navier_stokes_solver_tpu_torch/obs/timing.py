@@ -21,7 +21,7 @@ class PhaseTimer:
     includes the device work it enqueued.
     """
 
-    def __init__(self, device: torch.device | str = "cpu"):
+    def __init__(self, device: torch.device | str):
         self.device = torch.device(device)
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)

@@ -1,39 +1,53 @@
-"""Fused per-cell velocity-block apply: CUDA kernel wrapper and plain version.
+"""Fused per-cell velocity-block apply: CUDA kernel wrappers and plain version.
 
 Replaces the JAX package's Pallas TPU kernel
 ``navier_stokes_solver_tpu/ops/pallas_cell.py::_run`` (wrapper
 ``cell_apply_F_pallas``).  Per cell it evaluates the gradients (and, in
-the Newton regime, the values) of the gathered velocity DoFs at the
+the Newton regime, the values) of the cell's velocity DoFs at the
 quadrature points, applies the physics -- the flux ``nu grad x`` plus, in
 the Newton regime, ``(u_k . grad) x + (x . grad) u_k + x / dt`` -- and
 projects back onto the test functions weighted by JxW and the active-cell
 mask.
 
-On the H100 the kernel (``csrc/cell_apply_f.cu``) runs one thread per
-cell.  Each cell reads about 2 n_v + 6 n_q + n_q words (its DoFs, the
-linearization state and its quadrature weights), writes 2 n_v, and does
-about 10 n_q n_v flops per velocity component: a few flops per byte, so
-per byte it would be bound by memory.  At the main path's 100x70 it is
-bound by latency instead: one thread per cell is 7,000 threads, about one
-64-thread block per SM, too few to hide the load latency, so a call runs
-at a few percent of the HBM roofline (PERF.md).  The design keeps the
-bytes minimal -- every input read once, coalesced along the contiguous
-cell axis; the three [n_q, n_v] tables in shared memory (6 KB in f64),
-read as broadcasts; all intermediates in registers -- and leaves the fill
-of the card to later work: more threads per cell (one per quadrature
-point or per local DoF), and fusing the gather into the kernel.  It is
-launched on the current stream and allocates nothing.
+Two entry points launch the same kernel (``csrc/cell_apply_f.cu``):
+
+* ``cell_apply_F_lattice`` (the main path, ``ops/matfree.py::apply_F``)
+  takes the velocity lattice [2, NY, NX] and reads it in place through
+  the strides of its cell-local view (``ops/lattice.py::lattice_view``):
+  no gather copy;
+* ``cell_apply_F`` takes gathered DoFs [n_v, 2, ny, nx], the layout of
+  the JAX ``cell_apply_F_pallas``.
+
+A block owns a tile of consecutive cells of one cell row.  It stages the
+tile's lattice strip and the tables in shared memory, then one thread per
+(quadrature point, cell) forms the fluxes and one thread per (local DoF,
+cell) projects them: n_q threads per cell instead of one, a few tens of
+registers each.  Per call the kernel moves about 4.5 MB at 100x70 f32 in
+the Newton regime (bound 1.4 us at 3.35 TB/s; ~46 MFLOP is 0.7 us at
+67 TFLOP/s), so it is bound by memory; the sums keep the order of the
+first, one-thread-per-cell version, so its f32 results are unchanged.
+CPU tensors take the plain PyTorch version; a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
+from navier_stokes_solver_tpu_torch.ops.lattice import _gather_v, lattice_view
 
-__all__ = ["cell_apply_F", "cell_apply_F_plain"]
+__all__ = [
+    "cell_apply_F",
+    "cell_apply_F_lattice",
+    "cell_apply_F_plain",
+    "cell_apply_F_lattice_plain",
+    "is_dense",
+    "check_operand",
+]
 
 
 def cell_apply_F_plain(disc: Disc, nu, inv_dt, linq, x_loc, *, stokes: bool):
@@ -65,70 +79,132 @@ def cell_apply_F_plain(disc: Disc, nu, inv_dt, linq, x_loc, *, stokes: bool):
     return y
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device):
+def cell_apply_F_lattice_plain(disc: Disc, nu, inv_dt, linq, x_u, *, stokes: bool):
+    """``cell_apply_F_lattice`` in plain PyTorch: gather, then the plain
+    cell apply.  ``x_u``: velocity lattice [2, NY, NX]."""
+    return cell_apply_F_plain(disc, nu, inv_dt, linq, _gather_v(disc, x_u), stokes=stokes)
+
+
+def is_dense(t: torch.Tensor) -> bool:
+    """True when ``t`` covers its memory without gaps or overlaps: its
+    strides are those of a contiguous tensor with the axes permuted, as
+    every PyTorch operator's output has."""
+    expect = 1
+    for size, stride in sorted(zip(t.shape, t.stride()), key=lambda p: p[1]):
+        if size == 1:
+            continue
+        if stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def check_operand(who: str, name: str, t: torch.Tensor, shape: tuple, dtype, device, *, dense=False):
+    """Raise ``ValueError`` unless ``t`` has this dtype, device and shape
+    and is contiguous (or, with ``dense``, dense: see ``is_dense``)."""
     if t.dtype != dtype or t.device != device:
-        raise ValueError(
-            f"cell_apply_F: {name} is {t.dtype} on {t.device}, "
-            f"expected {dtype} on {device}"
-        )
+        raise ValueError(f"{who}: {name} is {t.dtype} on {t.device}, expected {dtype} on {device}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"cell_apply_F: {name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"cell_apply_F: {name} must be contiguous")
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if dense and not is_dense(t):
+        raise ValueError(
+            f"{who}: {name} has strides {t.stride()}; the kernel takes a "
+            "dense tensor (a contiguous one, or one with its axes permuted)"
+        )
+    if not dense and not t.is_contiguous():
+        raise ValueError(f"{who}: {name} must be contiguous")
 
 
-def cell_apply_F(disc: Disc, nu, inv_dt, linq, x_loc, *, stokes: bool):
-    """Fused per-cell compute of the velocity-block apply.
-
-    Takes and returns the layout of the JAX ``cell_apply_F_pallas``:
-    ``x_loc`` [n_v, 2, ny, nx] -> [n_v, 2, ny, nx].  A CUDA tensor goes
-    through the hand-written kernel (and counts one in
-    ``cell_apply_F.launches``); a CPU tensor through
-    ``cell_apply_F_plain``.
-    """
+def _check_common(disc: Disc, linq, stokes: bool):
     n_q, n_v = disc.cell_tabs.shape[1:]
-    ny, nx = disc.ny, disc.nx
     dtype, device = disc.dtype, disc.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"cell_apply_F: unsupported dtype {dtype}")
     if n_v != n_q or n_v not in (9, 16):
         raise ValueError(f"cell_apply_F: no kernel for n_v={n_v}, n_q={n_q}")
-    _check("x_loc", x_loc, (n_v, 2, ny, nx), dtype, device)
     if not stokes:
         if linq is None:
             raise ValueError("cell_apply_F: the Newton regime needs linq")
-        _check("linq.u", linq.u, (n_q, 2, ny, nx), dtype, device)
-        _check("linq.gradu", linq.gradu, (n_q, 2, 2, ny, nx), dtype, device)
-    if device.type == "cpu":
-        return cell_apply_F_plain(disc, nu, inv_dt, linq, x_loc, stokes=stokes)
+        ny, nx = disc.ny, disc.nx
+        check_operand("cell_apply_F", "linq.u", linq.u, (n_q, 2, ny, nx), dtype, device)
+        check_operand("cell_apply_F", "linq.gradu", linq.gradu, (n_q, 2, 2, ny, nx), dtype, device)
+
+
+def _launch(disc: Disc, nu, inv_dt, linq, view: torch.Tensor, *, lattice: bool, stokes: bool):
+    """Launch the kernel on ``view``, the [k+1, k+1, 2, ny, nx] cell-local
+    view of the input (the lattice's when ``lattice``), read through its
+    five strides."""
+    device = disc.device
     if device.type != "cuda":
         raise ValueError(f"cell_apply_F: no kernel for device {device}")
-
     from navier_stokes_solver_tpu_torch import _ext
 
     lib = _ext.load()
-    y = torch.empty_like(x_loc)
-    # the Stokes variant never reads the state; any valid pointer will do
-    uq, guq = (x_loc, x_loc) if stokes else (linq.u, linq.gradu)
+    n_v = disc.cell_tabs.shape[2]
+    ny, nx = disc.ny, disc.nx
+    y = torch.empty((n_v, 2, ny, nx), dtype=disc.dtype, device=device)
+    uq, guq = (None, None) if stokes else (linq.u.data_ptr(), linq.gradu.data_ptr())
     err = lib.nstt_cell_apply_f(
-        1 if dtype == torch.float64 else 0,
-        n_v,
+        1 if disc.dtype == torch.float64 else 0,
+        disc.deg_v,
         int(stokes),
-        x_loc.data_ptr(),
-        uq.data_ptr(),
-        guq.data_ptr(),
+        view.data_ptr(),
+        *view.stride(),
+        int(lattice),
+        uq,
+        guq,
         disc.cell_w.data_ptr(),
         disc.cell_tabs.data_ptr(),
         ctypes.c_double(float(nu)),
         ctypes.c_double(float(inv_dt)),
         y.data_ptr(),
-        ny * nx,
+        nx,
+        ny,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"cell_apply_F: kernel launch failed ({_ext.error_string(err)})")
     cell_apply_F.launches += 1
+    cell_apply_F.launches_by_shape[(nx, ny, bool(stokes), str(disc.dtype)[6:])] += 1
     return y
 
 
+def cell_apply_F(disc: Disc, nu, inv_dt, linq, x_loc, *, stokes: bool):
+    """Fused per-cell compute of the velocity-block apply on gathered DoFs.
+
+    Takes and returns the layout of the JAX ``cell_apply_F_pallas``:
+    ``x_loc`` [n_v, 2, ny, nx] (contiguous) -> [n_v, 2, ny, nx].  A CUDA
+    tensor goes through the hand-written kernel; a CPU tensor through
+    ``cell_apply_F_plain``.  ``cell_apply_F.launches`` counts the kernel's
+    launches through either entry point, ``cell_apply_F.launches_by_shape``
+    the same by ``(nx, ny, stokes, dtype name)``.
+    """
+    _check_common(disc, linq, stokes)
+    k, ny, nx = disc.deg_v, disc.ny, disc.nx
+    check_operand("cell_apply_F", "x_loc", x_loc, ((k + 1) ** 2, 2, ny, nx), disc.dtype, disc.device)
+    if disc.device.type == "cpu":
+        return cell_apply_F_plain(disc, nu, inv_dt, linq, x_loc, stokes=stokes)
+    view = x_loc.view(k + 1, k + 1, 2, ny, nx)
+    return _launch(disc, nu, inv_dt, linq, view, lattice=False, stokes=stokes)
+
+
+def cell_apply_F_lattice(disc: Disc, nu, inv_dt, linq, x_u, *, stokes: bool):
+    """The same apply on the velocity lattice ``x_u`` [2, NY, NX], read in
+    place: the gather is fused into the kernel.
+
+    ``x_u`` must be dense (contiguous, or with its axes permuted, as the
+    multigrid transfers' einsum outputs are): the kernel indexes in 32
+    bits, which every offset into a dense lattice fits.  Its strides are
+    passed to the kernel.  Returns [n_v, 2, ny, nx] contiguous.  A CPU
+    tensor takes ``cell_apply_F_lattice_plain``.
+    """
+    _check_common(disc, linq, stokes)
+    check_operand("cell_apply_F", "x_u", x_u, (2,) + disc.NV, disc.dtype, disc.device, dense=True)
+    if disc.device.type == "cpu":
+        return cell_apply_F_lattice_plain(disc, nu, inv_dt, linq, x_u, stokes=stokes)
+    view = lattice_view(x_u, disc.deg_v, disc.ny, disc.nx)
+    return _launch(disc, nu, inv_dt, linq, view, lattice=True, stokes=stokes)
+
+
 cell_apply_F.launches = 0
+cell_apply_F.launches_by_shape = collections.Counter()

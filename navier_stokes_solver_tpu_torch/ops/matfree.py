@@ -11,8 +11,11 @@ Each operator application is:
       -> einsum with test functions
       -> ordered strided scatter-add back to the node lattice
 
-The velocity block ``apply_F`` runs the middle three steps as one fused
-per-cell kernel (``ops/cell_kernel.py``).  The voxelized cylinder is
+The velocity block ``apply_F`` runs the first four steps as one fused
+per-cell kernel that reads the lattice in place (``ops/cell_kernel.py``)
+and the scatter, with the boundary rows, as a second
+(``ops/scatter_kernel.py``); the plain gather and scatter live in
+``ops/lattice.py``.  The voxelized cylinder is
 handled by masking inactive cells (``disc.cell_mask``); lattice nodes that
 do not exist in the reference triangulation behave as identity rows.
 
@@ -32,8 +35,17 @@ from typing import NamedTuple
 import torch
 
 from navier_stokes_solver_tpu_torch.ops.blocks import Blocks
-from navier_stokes_solver_tpu_torch.ops.cell_kernel import cell_apply_F
+from navier_stokes_solver_tpu_torch.ops.cell_kernel import cell_apply_F_lattice
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
+from navier_stokes_solver_tpu_torch.ops.lattice import (  # noqa: F401 (_gather, _scatter: tests)
+    _gather,
+    _gather_p,
+    _gather_v,
+    _scatter,
+    _scatter_p,
+    _scatter_v,
+)
+from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc
 
 __all__ = [
     "LinearizationQ",
@@ -49,81 +61,6 @@ __all__ = [
     "diag_Mp",
     "lift_drag_forces",
 ]
-
-
-# ---------------------------------------------------------------------------
-# Gather / scatter between node lattices and cell-local layout
-# ---------------------------------------------------------------------------
-
-
-def _gather(x: torch.Tensor, k: int, ny: int, nx: int) -> torch.Tensor:
-    """Gather cell-local DoFs from a degree-k lattice.
-
-    ``x``: [..., NY, NX] -> [n_loc, ..., ny, nx] (contiguous), where local
-    node m = a * (k+1) + b sits at lattice position (k*iy + a, k*ix + b).
-    One strided view of ``x`` and one copy.
-    """
-    lead = x.shape[:-2]
-    sY, sX = x.stride()[-2:]
-    view = x.as_strided(
-        (k + 1, k + 1) + lead + (ny, nx),
-        (sY, sX) + x.stride()[:-2] + (k * sY, k * sX),
-        x.storage_offset(),
-    )
-    return view.reshape(((k + 1) ** 2,) + lead + (ny, nx))
-
-
-def _scatter(loc: torch.Tensor, k: int, ny: int, nx: int) -> torch.Tensor:
-    """Scatter-add cell-local contributions onto the degree-k lattice.
-
-    ``loc``: [n_loc, ..., ny, nx] -> [..., NY, NX].  Every lattice node sums
-    its (at most four) contributions in ascending local index m, as the
-    JAX package's sum of dilated pads does -- so the result is the same
-    ordered sum, bit for bit, and the same on every run (no atomics).  The
-    local nodes are added in four groups -- (a < k, b < k), (a < k, b = k),
-    (a = k, b < k), (a = k, b = k) -- each one strided in-place add: within
-    a group no two contributions meet, and across groups the order at
-    every node is ascending m.
-    """
-    lead = loc.shape[1:-2]
-    out = loc.new_zeros(lead + (k * ny + 1, k * nx + 1))
-    L = loc.reshape((k + 1, k + 1) + lead + (ny, nx))
-    nd = len(lead)
-    # loc axes after the reshape: (a, b, *lead, iy, ix)
-    lead_ax = tuple(range(2, 2 + nd))
-    iy, ix = 2 + nd, 3 + nd
-    inner = out[..., : k * ny, : k * nx]
-    # (a < k, b < k): lattice (k*iy + a, k*ix + b) inside the lower-left block
-    inner.unflatten(-1, (nx, k)).unflatten(-3, (ny, k)).add_(
-        L[:k, :k].permute(lead_ax + (iy, 0, ix, 1))
-    )
-    # (a < k, b = k): columns k*(ix+1)
-    out[..., : k * ny, k::k].unflatten(-2, (ny, k)).add_(
-        L[:k, k].permute(tuple(a - 1 for a in lead_ax) + (iy - 1, 0, ix - 1))
-    )
-    # (a = k, b < k): rows k*(iy+1)
-    out[..., k::k, : k * nx].unflatten(-1, (nx, k)).add_(
-        L[k, :k].permute(tuple(a - 1 for a in lead_ax) + (iy - 1, ix - 1, 0))
-    )
-    # (a = k, b = k)
-    out[..., k::k, k::k].add_(L[k, k])
-    return out
-
-
-def _gather_v(disc: Disc, u: torch.Tensor) -> torch.Tensor:
-    return _gather(u, disc.deg_v, disc.ny, disc.nx)  # [n_v, 2, ny, nx]
-
-
-def _gather_p(disc: Disc, p: torch.Tensor) -> torch.Tensor:
-    return _gather(p, disc.deg_p, disc.ny, disc.nx)  # [n_p, ny, nx]
-
-
-def _scatter_v(disc: Disc, loc: torch.Tensor) -> torch.Tensor:
-    return _scatter(loc, disc.deg_v, disc.ny, disc.nx)
-
-
-def _scatter_p(disc: Disc, loc: torch.Tensor) -> torch.Tensor:
-    return _scatter(loc, disc.deg_p, disc.ny, disc.nx)
 
 
 # ---------------------------------------------------------------------------
@@ -232,19 +169,17 @@ def apply_F(
     Newton regime: adds linearized convection + du . v / dt
     (NSSolver.cpp:424-453).  ``inv_dt = 0`` gives the stationary variant.
 
-    Gather, the fused cell kernel (its plain version for CPU tensors) and
-    the scatter run on every call, in both dtypes.
+    On CUDA tensors, two kernel launches in both dtypes: the cell kernel
+    reads ``x_u``'s lattice in place (``cell_apply_F_lattice``), and the
+    ordered scatter applies the boundary rows as it writes
+    (``scatter_v_bc``).  CPU tensors take their plain versions.
 
     ``bc_diag``: if given, constrained rows are replaced by ``diag * x``
     (the post-``apply_boundary_values`` matrix, as used for preconditioner
     inner solves on the velocity block, NSSolver.cpp:609).
     """
-    loc = cell_apply_F(disc, nu, inv_dt, linq, _gather_v(disc, x_u), stokes=stokes)
-    y = _scatter_v(disc, loc)
-    if bc_diag is not None:
-        y = torch.where(disc.u_dirichlet, bc_diag * x_u, y)
-        y = torch.where(disc.u_active, y, x_u)
-    return y
+    loc = cell_apply_F_lattice(disc, nu, inv_dt, linq, x_u, stokes=stokes)
+    return scatter_v_bc(disc, loc, bc_diag=bc_diag, x_u=x_u)
 
 
 def _eye2(disc: Disc) -> torch.Tensor:

@@ -21,6 +21,7 @@ from navier_stokes_solver_tpu.ops import matfree as jmf
 from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry, make_fe_space
 from navier_stokes_solver_tpu_torch.ops import Blocks, make_disc
 from navier_stokes_solver_tpu_torch.ops import matfree as tmf
+from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc
 
 # One intra-op thread: the shapes here are tiny, and the test workers already
 # share the cores; torch's default pool only spins and slows its neighbours.
@@ -79,6 +80,34 @@ def test_gather_scatter_bit_identical(case):
         tmf._scatter(torch.as_tensor(locp), kp, td.ny, td.nx).numpy(),
         np.asarray(jmf._scatter(jnp.asarray(locp), kp, jd.ny, jd.nx)),
     )
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "float32"])
+@pytest.mark.parametrize("with_bc", [False, True], ids=["raw", "bc"])
+def test_scatter_v_bc_bit_identical(case, with_bc, dtype_name):
+    """apply_F's second step -- the ordered scatter and the boundary rows
+    (on the CPU the plain version of ``scatter_v_bc``) -- against the JAX
+    package's ``_scatter_v`` and the two ``where`` of its ``apply_F``, bit
+    for bit."""
+    jd, td = case["jd"], case["td"]
+    rng = np.random.default_rng(5)
+    loc = rng.standard_normal(((jd.deg_v + 1) ** 2, 2, jd.ny, jd.nx)).astype(dtype_name)
+    x = np.asarray(case["j"]["x_u"]).astype(dtype_name)
+    want = jmf._scatter_v(jd, jnp.asarray(loc))
+    bc = None
+    if with_bc:
+        jbc = jmf.diag_F(jd, NU, INV_DT, case["jlin"], stokes=False)
+        bc = np.asarray(jbc).astype(dtype_name)
+        want = jnp.where(jd.u_dirichlet, jnp.asarray(bc) * jnp.asarray(x), want)
+        want = jnp.where(jd.u_active, want, jnp.asarray(x))
+    td = td.to(getattr(torch, dtype_name))
+    got = scatter_v_bc(
+        td, torch.as_tensor(loc),
+        bc_diag=None if bc is None else torch.as_tensor(bc), x_u=torch.as_tensor(x),
+    )
+    assert got.dtype == getattr(torch, dtype_name) and want.dtype == np.dtype(dtype_name)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert scatter_v_bc.launches == 0  # the CPU never launches
 
 
 def test_eval_state(case):
