@@ -11,12 +11,15 @@ Phases (each raises on failure; none catches another's):
                 per source, started together) and print ptxas's register
                 and spill report;
   3. check    -- each kernel against its plain PyTorch version on the card,
-                at 100x70 Q3/Q2, 20x9 Q2/Q1 and every multigrid level of the
-                main path: ``cell_apply_F`` (both entry points, and a
-                permuted lattice layout) within rtol = atol 1e-5 (f32) and
-                1e-12 (f64); ``scatter_v_bc`` bit for bit (max |diff| == 0),
-                with and without the boundary rows;
-  4. time     -- at 100x70 and every multigrid level, f32, both regimes:
+                at 100x70 Q3/Q2, 20x9 Q2/Q1, 300x100 Q3/Q2 and every
+                multigrid level of both main paths: ``cell_apply_F`` (both
+                entry points, and a permuted lattice layout) within rtol =
+                atol 1e-5 (f32) and 1e-12 (f64); ``scatter_v_bc`` bit for
+                bit (max |diff| == 0), with and without the boundary rows;
+                every operand's largest element offset must fit the
+                kernels' 32-bit indexing;
+  4. time     -- at 100x70, 300x100 and every multigrid level of both, f32,
+                both regimes:
                 each kernel's device time (CUDA events around 200
                 back-to-back launches queued behind a sleep kernel, so the
                 host cannot starve the card, divided by 200), its
@@ -32,11 +35,33 @@ Phases (each raises on failure; none catches another's):
                 stay within 2 x 589, and every kernel of the path must have
                 launched (counts zeroed just before each solve, read just
                 after);
-  7. outer    -- at the converged state, device kernels, device time and
-                wall per outer FGMRES iteration in each regime, from
-                profiler windows of 1 and 4 outer iterations (difference);
-  8. report   -- one JSON line of per-kernel results, the nvidia-smi line,
+  7. outer    -- at the converged state, device kernels, device time, wall
+                and host readbacks (device-to-host copies) per outer FGMRES
+                iteration in each regime, from profiler windows of 1 and 4
+                outer iterations (difference);
+  8. unsteady-check -- ``NSSolver.solve()`` (the per-step Re ramp) at 32x12
+                Q3/Q2, Re 20, two steps, all-f64 preconditioner, once on the
+                card and once on the CPU (the plain versions): per-solve
+                Krylov counts equal (or each within 1, printed), drag and
+                lift per step within rtol 1e-7, fields within 1e-6 of their
+                largest magnitude;
+  9. unsteady-main -- the north-star unsteady configuration at full width:
+                300x100 Q3/Q2 (657,740 DoFs), Re 100, dt 0.01, two of the 800
+                steps of T = 8, tol 1e-9, FGMRES basis 30, blockTriangular
+                with the Cahouet-Chabard leg (one Lp V-cycle), f32
+                preconditioner, ``NSSolver.solve(direct=True)``: setup and
+                per-step walls, Newton iterations, outer counts, final
+                Newton residual (each <= 1e-9), coefficients (finite), kernel
+                launches (counts zeroed just before, read just after: each
+                kernel must have launched);
+ 10. unsteady-outer -- phase 7's profile in the unsteady Newton regime at
+                the state the run ended in, with our kernels' share;
+ 11. report   -- one JSON line of per-kernel results, the nvidia-smi line,
                 then the final ``{"ok": true, "device": ...}`` line.
+
+If the script outgrows its time budget, depth is cut, in this order: the
+stationary solve to one run (``SOLVES``), then the unsteady run to one
+step (``UNSTEADY_STEPS``); never the mesh.  The cut is printed.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -59,13 +84,22 @@ BENCH_OUTER_ITERS = 589  # BENCH_r05.json parsed.extra.total_krylov_iters
 DRAG_RTOL = 1e-7
 # kernel vs plain tolerances: summation order differs (tests/test_pallas.py)
 KERNEL_TOL = {"float64": 1e-12, "float32": 1e-5}
-KERNEL_NU, KERNEL_INV_DT = 0.05, 50.0
+KERNEL_NU, KERNEL_INV_DT = 0.05, 100.0  # inv_dt of the unsteady path (dt 0.01)
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 TIMED_CALLS, HOST_CALLS, PLAIN_CALLS = 200, 50, 20
 OUTER_WINDOW = 4
-SOLVES = 2
+SOLVES = 2  # stationary runs (the first depth cut: 1)
+# the unsteady north star (BASELINE.json): 300x100 Q3/Q2, Re 100, dt 0.01
+UNSTEADY_MESH = (300, 100)
+UNSTEADY_DOFS = 657_740
+UNSTEADY_DT = 0.01
+UNSTEADY_STEPS = 2  # of the 800 steps of T = 8 (the second depth cut: 1)
+CHECK_MESH = (32, 12)  # unsteady-check: card against CPU
+CHECK_RE, CHECK_STEPS = 20.0, 2
+FIELD_GATE = 1e-6  # BASELINE.md, relative to each field's largest magnitude
+INDEX_LIMIT = 2**31  # the kernels index in 32 bits
 SOURCES = {
     "cell_apply_F": "navier_stokes_solver_tpu_torch/csrc/cell_apply_f.cu",
     "scatter_v_bc": "navier_stokes_solver_tpu_torch/csrc/scatter_v.cu",
@@ -212,20 +246,26 @@ def scatter_cost(disc, with_bc):
 
 
 def kernel_shapes(device):
-    """(mesh, degree) pairs: the 100x70 Q3/Q2 main path, 20x9 Q2/Q1, and
-    every coarse level of the main path's multigrid chain."""
-    return [(BENCH_MESH, (3, 2)), ((20, 9), (2, 1))] + [(s, (3, 2)) for s in mg_shapes(device)[1:]]
+    """(mesh, degree) pairs: the 100x70 and 300x100 Q3/Q2 main paths, 20x9
+    Q2/Q1, and every coarse level of both main paths' multigrid chains."""
+    coarse = mg_shapes(device, BENCH_MESH)[1:] + mg_shapes(device, UNSTEADY_MESH)[1:]
+    return [(BENCH_MESH, (3, 2)), ((20, 9), (2, 1)), (UNSTEADY_MESH, (3, 2))] + [(s, (3, 2)) for s in coarse]
 
 
-def mg_shapes(device):
+def mg_shapes(device, mesh):
     import torch
 
     from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry, make_fe_space
     from navier_stokes_solver_tpu_torch.ops import make_disc
     from navier_stokes_solver_tpu_torch.precond.mg import attach_mg, mg_level_shapes
 
-    fine = make_disc(make_fe_space(make_channel_geometry(*BENCH_MESH), 3, 2), torch.float32, device)
+    fine = make_disc(make_fe_space(make_channel_geometry(*mesh), 3, 2), torch.float32, device)
     return mg_level_shapes(attach_mg(fine))
+
+
+def max_offset(t) -> int:
+    """The largest element offset a kernel computes into ``t``'s storage."""
+    return sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
 
 
 def phase_check(device):
@@ -236,17 +276,22 @@ def phase_check(device):
         cell_apply_F_lattice,
         cell_apply_F_lattice_plain,
     )
-    from navier_stokes_solver_tpu_torch.ops.lattice import _gather_v
+    from navier_stokes_solver_tpu_torch.ops.lattice import _gather_v, lattice_view
     from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
 
     err_a = err_b = 0.0
     for mesh, deg in kernel_shapes(device):
-        dtypes = (torch.float32, torch.float64) if mesh in (BENCH_MESH, (20, 9)) else (torch.float32,)
+        dtypes = (torch.float32, torch.float64) if mesh in (BENCH_MESH, (20, 9), UNSTEADY_MESH) else (torch.float32,)
         for dtype in dtypes:
             disc, linq, x, bc = kernel_case(device, mesh, deg, dtype)
             # the layout a multigrid transfer's einsum hands the kernel
             x_perm = x.permute(2, 0, 1).contiguous().permute(1, 2, 0)
             tol = KERNEL_TOL[str(dtype)[6:]]
+            views = {"lattice view": lattice_view(x, deg[0], *mesh[::-1]), "permuted view": lattice_view(x_perm, deg[0], *mesh[::-1]), "linq.gradu": linq.gradu, "output": _gather_v(disc, x)}
+            offsets = {k: max_offset(v) for k, v in views.items()}
+            print(f"[check] {mesh[0]}x{mesh[1]} Q{deg[0]}/Q{deg[1]} {str(dtype)[6:]}: largest element offsets {json.dumps(offsets)} (32-bit limit {INDEX_LIMIT})")
+            if max(offsets.values()) >= INDEX_LIMIT:
+                raise RuntimeError(f"an operand at {mesh} exceeds the kernels' 32-bit indexing: {offsets}")
             for stokes in (True, False):
                 tag = f"{mesh[0]}x{mesh[1]} Q{deg[0]}/Q{deg[1]} {str(dtype)[6:]} {'stokes' if stokes else 'newton'}"
                 args = (disc, KERNEL_NU, KERNEL_INV_DT, None if stokes else linq)
@@ -297,7 +342,7 @@ def phase_time(device):
     from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
 
     out = {"cell_apply_F": {}, "scatter_v_bc": {}}
-    for mesh in mg_shapes(device):
+    for mesh in mg_shapes(device, BENCH_MESH) + mg_shapes(device, UNSTEADY_MESH):
         disc, linq, x, bc = kernel_case(device, mesh, (3, 2), torch.float32)
         shape = f"{mesh[0]}x{mesh[1]} Q3/Q2 float32"
         for stokes in (True, False):
@@ -474,53 +519,178 @@ def run_solve(device, ref):
     return s, {"wall_s": wall, "outer": total, "drag": s.drag_coeff, "counts": counts}
 
 
-def outer_profile(disc, nu, st, st_old_u, options, stokes, iters=OUTER_WINDOW):
-    """Device kernels, device ms and wall ms per outer FGMRES iteration of
-    one tangent solve at state ``st``: profiler windows of a 1-iteration and
-    a (1 + ``iters``)-iteration solve (tolerance 0, so neither stops early),
+def outer_profile(s, stokes, iters=OUTER_WINDOW):
+    """Device kernels, device ms, wall ms and host readbacks (device-to-host
+    copies) per outer FGMRES iteration of one tangent solve of solver ``s``
+    at its current state: profiler windows of a 1-iteration and a
+    (1 + ``iters``)-iteration solve (tolerance 0, so neither stops early),
     differenced so that the per-solve set-up cancels."""
     from navier_stokes_solver_tpu_torch.api import kernels
     from navier_stokes_solver_tpu_torch.ops import Blocks
 
-    rhs, _ = kernels.assemble_kernel(disc.replace(mg=None), nu, 0.0, st, st_old_u, 0.0, stokes=stokes)
+    disc, o = s.disc, s.options
+    rhs, _ = kernels.assemble_kernel(
+        s.disc_nomg, s.nu, s.inv_dt, s.solution, s.solution_old.u, 0.0,
+        stokes=stokes, consistent=o.consistent_continuity,
+    )
     zero = Blocks(disc.zeros_u(), disc.zeros_p())
 
     def solve(n):
         return kernels.solve_kernel(
-            disc, nu, 0.0, st, rhs, zero, 0.0, 0.0, stokes=stokes,
-            solver_type=options.solver_type, prec_type=options.preconditioner_type,
-            variant="stationary", maxiter=n, precond_cfg=options.precond_config,
-            basis=options.krylov_basis,
+            disc, s.nu, s.inv_dt, s.solution, rhs, zero, 0.0, 0.0, stokes=stokes,
+            solver_type=o.solver_type, prec_type=o.preconditioner_type,
+            variant=s.VARIANT, maxiter=n, precond_cfg=o.precond_config,
+            basis=o.krylov_basis,
         )
 
+    ours = {"cell_apply_F": "cell_apply_f_kernel", "scatter_v_bc": "scatter_v_kernel"}
     win = {}
     for n in (1, 1 + iters):
         ev, (_, info), wall = profile_call(lambda: solve(n))
-        names = [e.name for e in ev]
         win[n] = {
             "iters": info.iters,
             "kernels": len(ev),
             "device_ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3,
             "wall_ms": 1e3 * wall,
-            "cell_apply_F": sum("cell_apply_f_kernel" in m for m in names),
-            "scatter_v_bc": sum("scatter_v_kernel" in m for m in names),
+            "readbacks": sum("DtoH" in e.name for e in ev),
+            "ours_ms": sum(e.time_range.elapsed_us() for e in ev if any(k in e.name for k in ours.values())) / 1e3,
+            **{name: sum(k in e.name for e in ev) for name, k in ours.items()},
         }
     a, b = win[1], win[1 + iters]
     d = b["iters"] - a["iters"]
-    per = {k: (b[k] - a[k]) / d for k in ("kernels", "device_ms", "wall_ms", "cell_apply_F", "scatter_v_bc")}
+    keys = ("kernels", "device_ms", "wall_ms", "readbacks", "ours_ms", *ours)
+    per = {k: (b[k] - a[k]) / d for k in keys}
     per["busy"] = per["device_ms"] / per["wall_ms"]
+    per["ours_share"] = per["ours_ms"] / per["device_ms"]
     per["outer_iterations"] = d
     return per
 
 
-def phase_outer(s):
+def phase_outer(s, regimes=(False, True), tag="outer"):
     out = {}
-    for stokes in (False, True):
+    for stokes in regimes:
         regime = "stokes" if stokes else "newton"
-        per = outer_profile(s.disc, s.nu, s.solution, s.solution_old.u, s.options, stokes)
+        per = outer_profile(s, stokes)
         out[regime] = per
-        print(f"[outer] per outer iteration, {regime} regime at the converged state (profiled): {json.dumps(per)}")
+        print(f"[{tag}] per outer iteration, {regime} regime at the converged state (profiled): {json.dumps(per)}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# 8. unsteady-check, 9. unsteady-main
+# ---------------------------------------------------------------------------
+
+
+def unsteady_solver(device, mesh, Re, steps, cfg, *, consistent=False):
+    from navier_stokes_solver_tpu_torch.api import NSSolver, SolverOptions
+
+    return NSSolver(SolverOptions(
+        mesh_size=mesh,
+        degree_velocity=3,
+        degree_pressure=2,
+        Re=Re,
+        solver_type=1,  # FGMRES
+        tolerance=1e-9,
+        preconditioner_type=1,  # blockTriangular
+        krylov_basis=30,
+        time_step=UNSTEADY_DT,
+        time_span=steps * UNSTEADY_DT,
+        verbose=False,
+        precond_config=cfg,
+        consistent_continuity=consistent,
+        device=device,
+    )).setup()
+
+
+def solves_of(s):
+    return [h for h in s.history if h["phase"] != "step"]
+
+
+def steps_of(s):
+    return [h for h in s.history if h["phase"] == "step"]
+
+
+def phase_unsteady_check(device):
+    """The per-step ramp path on the card against the same run on the CPU."""
+    import numpy as np
+    import torch
+
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    cfg = PrecondConfig(schur_mode="cahouet", vmult_dtype=None, mg_dtype=None)
+    runs = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        s = unsteady_solver(dev, CHECK_MESH, CHECK_RE, CHECK_STEPS, cfg)
+        t0 = time.perf_counter()
+        s.solve()
+        runs[where] = s
+        print(f"[unsteady-check] {CHECK_MESH[0]}x{CHECK_MESH[1]} Re {CHECK_RE} on the {where}: solve wall {time.perf_counter() - t0!r} s, per solve {[(h['phase'], h['nu'], h['n_iter'], h['krylov_iters']) for h in solves_of(s)]}")
+    g, c = runs["card"], runs["cpu"]
+    key = lambda h: (h["phase"], h["nu"], h["n_iter"])
+    if [key(h) for h in solves_of(g)] != [key(h) for h in solves_of(c)]:
+        raise RuntimeError("unsteady-check: the card's Newton history differs from the CPU's")
+    diffs = [hg["krylov_iters"] - hc["krylov_iters"] for hg, hc in zip(solves_of(g), solves_of(c))]
+    print(f"[unsteady-check] Krylov counts card - CPU per solve {diffs}: {'equal' if not any(diffs) else 'within 1' if max(map(abs, diffs)) <= 1 else 'DIFFERENT'}")
+    if any(abs(d) > 1 for d in diffs):
+        raise RuntimeError(f"unsteady-check: Krylov counts differ by more than 1: {diffs}")
+    for hg, hc in zip(steps_of(g), steps_of(c)):
+        for k in ("drag_coeff", "lift_coeff"):
+            # the lift of this symmetric-inlet mesh is rounding: floor at the drag
+            err, floor = abs(hg[k] - hc[k]), 1e-7 * abs(hc["drag_coeff"])
+            print(f"[unsteady-check] step {hg['step']} {k}: card {hg[k]!r}, CPU {hc[k]!r}, |diff| {err:.3e}")
+            if not err <= max(1e-7 * abs(hc[k]), floor if k == "lift_coeff" else 0.0):
+                raise RuntimeError(f"unsteady-check: {k} at step {hg['step']} outside rtol 1e-7")
+    for name, a, b in zip(("velocity", "pressure"), g.fields(), c.fields()):
+        err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+        print(f"[unsteady-check] {name}: max|card - CPU| {err:.3e} (max|CPU| {scale:.3e})")
+        if not err <= FIELD_GATE * scale:
+            raise RuntimeError(f"unsteady-check: {name} fields differ by {err} > {FIELD_GATE} x {scale}")
+
+
+def phase_unsteady_main(device):
+    import numpy as np
+
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    cfg = PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1)
+    reset_counts()
+    # The Jacobian-consistent continuity sign: with the reference's sign the
+    # iterate's divergence doubles on every accepted full Newton step and
+    # the step stalls above the 1e-9 tolerance (docs/PERF.md, "x2-per-step")
+    s = unsteady_solver(device, UNSTEADY_MESH, 100.0, UNSTEADY_STEPS, cfg, consistent=True)
+    t0 = time.perf_counter()
+    s.solve(direct=True)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    u, p = s.fields()
+    print(f"[unsteady-main] {UNSTEADY_MESH[0]}x{UNSTEADY_MESH[1]} Q3/Q2 Re 100, n_dofs {s.n_dofs}, setup {s.setup_seconds:.3f} s, solve wall {wall!r} s over {len(steps_of(s))} steps")
+    steps = []
+    for h in steps_of(s):
+        sv = [x for x in solves_of(s) if x["time"] == h["time"]]
+        rec = {
+            "step": h["step"], "wall_s": h["seconds"], "newton_iterations": len(sv),
+            "outer_per_solve": [(x["phase"], x["krylov_iters"]) for x in sv],
+            "outer": sum(x["krylov_iters"] for x in sv),
+            "newton_residual": h["newton_residual"],
+            "drag_coeff": h["drag_coeff"], "lift_coeff": h["lift_coeff"],
+        }
+        steps.append(rec)
+        print(f"[unsteady-main] step {json.dumps(rec)}")
+    print(f"[unsteady-main] phases {json.dumps(s.timer.summary())}")
+    print(f"[unsteady-main] launches {json.dumps(counts)}")
+    if s.n_dofs != UNSTEADY_DOFS:
+        raise RuntimeError(f"DoF count {s.n_dofs} != {UNSTEADY_DOFS}")
+    if u.shape != (2,) + s.disc.NV or p.shape != s.disc.NP or not (np.isfinite(u).all() and np.isfinite(p).all()):
+        raise RuntimeError("unsteady fields are not finite or have the wrong shape")
+    for rec in steps:
+        if not rec["newton_residual"] <= s.NEWTON_TOL:
+            raise RuntimeError(f"step {rec['step']} ended with Newton residual {rec['newton_residual']!r} > {s.NEWTON_TOL}")
+        if not (np.isfinite(rec["drag_coeff"]) and np.isfinite(rec["lift_coeff"])):
+            raise RuntimeError(f"step {rec['step']}: non-finite coefficient")
+    for name, c in counts.items():
+        if c["launches"] <= 0:
+            raise RuntimeError(f"the unsteady path never launched {name}")
+    return s, {"wall_s": wall, "steps": steps, "counts": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -528,11 +698,12 @@ def phase_outer(s):
 # ---------------------------------------------------------------------------
 
 
-def kernel_line(errs, times, counts):
-    main_tag = {
-        "cell_apply_F": f"{BENCH_MESH[0]}x{BENCH_MESH[1]} Q3/Q2 float32 stokes",
-        "scatter_v_bc": f"{BENCH_MESH[0]}x{BENCH_MESH[1]} Q3/Q2 float32 bc",
-    }
+def kernel_line(errs, times, counts, counts_by_path):
+    """The kernels of this slice's main path (the unsteady 300x100 run):
+    launches from that run, times at its finest level; launches on every
+    main path beside them."""
+    mesh = f"{UNSTEADY_MESH[0]}x{UNSTEADY_MESH[1]} Q3/Q2 float32"
+    main_tag = {"cell_apply_F": f"{mesh} newton", "scatter_v_bc": f"{mesh} bc"}
     rows = []
     for name in ("cell_apply_F", "scatter_v_bc"):
         rec = times[name][main_tag[name]]
@@ -543,6 +714,7 @@ def kernel_line(errs, times, counts):
             "replaces": REPLACES[name],
             "launches": counts[name]["launches"],
             "launches_by_shape": counts[name]["by_shape"],
+            "launches_by_path": {path: c[name]["launches"] for path, c in counts_by_path.items()},
             "max_abs_err": errs[name],
             "shape": main_tag[name],
             "ms": rec["ms"],
@@ -559,9 +731,11 @@ def kernel_line(errs, times, counts):
 
 def main():
     sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
     device = phase_device()
     import torch
 
+    print(f"[budget] depth: stationary solves {SOLVES} of 2, unsteady steps {UNSTEADY_STEPS} of 2 (the 800 steps of T = 8 cut to 2)")
     phase_build()
     errs = phase_check(device)
     times = phase_time(device)
@@ -574,7 +748,14 @@ def main():
         runs.append(run)
     outer = phase_outer(s)
     print(f"[main] solve_newton walls {[r['wall_s'] for r in runs]} s; outer iterations {[r['outer'] for r in runs]}; kernels per outer iteration newton {outer['newton']['kernels']!r}, stokes {outer['stokes']['kernels']!r}")
-    print(kernel_line(errs, times, runs[0]["counts"]))
+    del s
+    phase_unsteady_check(device)
+    su, unsteady = phase_unsteady_main(device)
+    uouter = phase_outer(su, regimes=(False,), tag="unsteady-outer")
+    print(f"[unsteady-main] per-step walls {[r['wall_s'] for r in unsteady['steps']]} s; outer iterations per step {[r['outer'] for r in unsteady['steps']]}; Newton regime per outer iteration: {uouter['newton']['kernels']!r} device kernels, {uouter['newton']['readbacks']!r} readbacks, busy {uouter['newton']['busy']:.4f}")
+    counts_by_path = {"stationary": runs[0]["counts"], "unsteady": unsteady["counts"]}
+    print(kernel_line(errs, times, unsteady["counts"], counts_by_path))
+    print(f"[budget] script wall {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

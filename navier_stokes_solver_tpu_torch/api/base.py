@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+import os
 import time as _time
 from typing import Any
 
@@ -21,7 +22,7 @@ __all__ = ["SolverOptions", "NSSolverBase", "state_from_numpy"]
 @dataclasses.dataclass
 class SolverOptions:
     """CLI-equivalent configuration (defaults from test.cpp:25-34), the
-    JAX package's fields that the ported slice serves, plus ``device``."""
+    JAX package's fields that the ported paths serve, plus ``device``."""
 
     mesh_size: tuple[int, int] = (100, 100)  # -m X,Y
     degree_velocity: int = 3  # generated-mesh path default (test.cpp:26)
@@ -30,14 +31,18 @@ class SolverOptions:
     solver_type: int = 1  # -s (0 GMRES, 1 FGMRES)
     tolerance: float = 1e-6  # -t (absolute)
     preconditioner_type: int = 1  # -p (1 blockTriangular)
+    time_span: float = 1.0  # -T span,step (unsteady only)
+    time_step: float = 0.01
     # Outer GMRES/FGMRES restart basis (deal.II default 30; a deeper basis
     # is a perf knob -- same fields, fewer outer iterations).
     krylov_basis: int = 30
     read_mesh_from_file: bool = False  # -M: not ported
     geometry: str = "channel"  # "cavity": not ported
     multigrid: bool = True  # geometric-MG velocity smoother (AMG analog)
-    # where every tensor of the solve lives; required, never defaulted
-    device: Any = dataclasses.field(kw_only=True)
+    # where every tensor of the solve lives: the card unless the caller
+    # asks for "cpu" (without a card, "cuda" fails in setup: no silent
+    # fallback)
+    device: Any = "cuda"
     verbose: bool = True
     write_output: bool = False  # VTU snapshots: not ported
     # Stationary continuation: skip the reference's repeat Stokes-regime
@@ -46,6 +51,10 @@ class SolverOptions:
     skip_futile_stokes: bool = False
     precond_config: Any = None  # precond.PrecondConfig
     dd: Any = None  # domain decomposition: not ported
+    # Newton continuity-rhs sign: False = the reference's +(q, div u_k)
+    # (NSSolver.cpp:517-519), which disagrees with its Jacobian's
+    # +(q, div du) row; True = the Jacobian-consistent -(q, div u_k)
+    consistent_continuity: bool = False
 
     def check(self) -> None:
         """Raise on options outside the ported slice."""
@@ -91,7 +100,7 @@ def state_from_numpy(u, p, *, dtype: torch.dtype, device) -> Blocks:
 
 
 class NSSolverBase:
-    """Common lifecycle of the solvers (the stationary one is ported)."""
+    """Common lifecycle of the stationary and unsteady solvers."""
 
     VARIANT: str = ""
     KRYLOV_MAXITER: int = 0  # SolverControl maxit
@@ -112,7 +121,7 @@ class NSSolverBase:
         self.device = torch.device(options.device)
         self.dtype = torch.float64
         self.Re = options.Re
-        self.nu: float = 0.001
+        self.nu: float = 0.01 if self.VARIANT == "unsteady" else 0.001
         self.history: list[dict] = []
         self.lift_force = 0.0
         self.drag_force = 0.0
@@ -175,6 +184,7 @@ class NSSolverBase:
                 self.solution_old.u,
                 self._inlet_amp(lifting),
                 stokes=stokes,
+                consistent=self.options.consistent_continuity,
             )
             rn = float(rn)
         return rn
@@ -289,6 +299,21 @@ class NSSolverBase:
         self.log("===============================================")
         self.compute_drag_coeff()
         self.log(f"Drag coefficient: {self.drag_coeff}")
+
+    def write_lift_drag_to_file(self, directory: str):
+        """Append the coefficients to per-Re files in ``directory``
+        (NSSolver.cpp:976-1018)."""
+        re = self.get_reynolds()
+        for name, value in (
+            ("drag_coefficient", self.drag_coeff),
+            ("lift_coefficient", self.lift_coeff),
+        ):
+            with open(os.path.join(directory, f"{name}_{re:.2f}.txt"), "a") as f:
+                f.write(f"{value}\n")
+
+    def output(self, time_step: int | None = None):
+        """VTU output (NSSolver.cpp:761-797): a no-op, since
+        ``SolverOptions.check`` rejects ``write_output`` (ROADMAP.md A.D6)."""
 
     def fields(self) -> tuple[np.ndarray, np.ndarray]:
         """Host copies of (velocity [2, NVy, NVx], pressure [NPy, NPx])."""

@@ -1,0 +1,182 @@
+"""Time-dependent Navier-Stokes solver (NSSolver, reference parity).
+
+Implicit-Euler time loop (NSSolver.cpp:799-837) with a Newton solve per step
+(NSSolver.cpp:674-754), including the per-step Reynolds continuation ramp
+1 -> target by +10 (a target of 100 stops at nu = 1/91) and the
+``apply_first`` inlet-lifting flag: the inlet profile is lifted only on the
+very first assembly of the run; afterwards the increment formulation keeps
+the boundary updates at zero.
+"""
+
+from __future__ import annotations
+
+import time as _time
+
+from navier_stokes_solver_tpu_torch.api import kernels
+from navier_stokes_solver_tpu_torch.api.base import NSSolverBase
+
+__all__ = ["NSSolver"]
+
+
+class NSSolver(NSSolverBase):
+    VARIANT = "unsteady"
+    KRYLOV_MAXITER = 100_000  # SolverControl (NSSolver.cpp:604)
+    NEWTON_MAX_ITERS = 10  # NSSolver.cpp:678
+    NEWTON_TOL = 1e-9  # NSSolver.cpp:679
+    U_M = 0.3  # inlet amplitude (NSSolver.hpp:88)
+
+    def __init__(self, options=None, **kwargs):
+        super().__init__(options, **kwargs)
+        self.apply_first = True  # NSSolver.hpp:387
+        self.time = 0.0
+        self.time_step_index = 0
+        self.newton_residual = float("nan")  # ||r|| where the last Newton loop ended
+
+    @property
+    def inv_dt(self) -> float:
+        return 1.0 / self.options.time_step
+
+    def _inlet_amp(self, lifting: bool) -> float:
+        return self.U_M if lifting else 0.0
+
+    def _inlet_u_max(self) -> float:
+        return self.U_M
+
+    # ------------------------------------------------------------------
+    def solve_newton(self, *, ramp: bool = True):
+        """NSSolver::solve_newton (NSSolver.cpp:674-754).
+
+        ``ramp=False`` skips the per-step Reynolds continuation and runs
+        Newton once at the ramp's final level 1 + 10 floor((Re - 1) / 10),
+        warm-started from the previous time step (``solve(direct=True)``).
+        """
+        self.log("===============================================")
+        target_Re = self.Re
+        first_iter = True
+        self.log(f"Target Re = {target_Re}")
+
+        if ramp:
+            # IEEE-identical stepping to the reference loop
+            # (NSSolver.cpp:684: current_Re = 1; current_Re <= Re; += 10)
+            levels = []
+            current_Re = 1.0
+            while current_Re <= target_Re:
+                levels.append(current_Re)
+                current_Re += 10.0
+        else:
+            levels = [1.0 + 10.0 * ((target_Re - 1.0) // 10.0) if target_Re >= 1.0 else target_Re]
+        for current_Re in levels:
+            self.log("===============================================")
+            self.nu = 1.0 / current_Re
+            self.log(f"Solving for Re = {self.get_reynolds()}")
+
+            n_iter = 0
+            residual_norm = self.NEWTON_TOL + 1
+            prev_residual = 0.0
+
+            while n_iter < self.NEWTON_MAX_ITERS and residual_norm > self.NEWTON_TOL:
+                if first_iter:
+                    first_iter = False
+                    stokes_now = n_iter == 0
+                    # the inlet profile is lifted only while apply_first
+                    # (first time step), NSSolver.cpp:573-580
+                    residual_norm = self.assemble_system(
+                        stokes_now, lifting=stokes_now and self.apply_first
+                    )
+                else:
+                    stokes_now = False
+                    residual_norm = self.assemble_system(False, lifting=False)
+
+                prev_residual = residual_norm + 1 if n_iter == 0 else prev_residual
+                self.log(
+                    f"Newton iteration {n_iter}/{self.NEWTON_MAX_ITERS}"
+                    f" - ||r|| = {residual_norm:.6e}"
+                )
+
+                if residual_norm > self.NEWTON_TOL:
+                    krylov_iter = self.solve_system(
+                        stokes_now, lifting=stokes_now and self.apply_first
+                    )
+                    self.history.append(
+                        dict(
+                            phase="stokes" if stokes_now else "ns",
+                            time=self.time,
+                            nu=self.nu,
+                            n_iter=n_iter,
+                            residual=residual_norm,
+                            krylov_iters=krylov_iter,
+                        )
+                    )
+                    if krylov_iter == 0:
+                        break
+
+                    evaluation_point = self.solution
+                    alpha = 1.0
+                    while alpha > 1e-12:
+                        self.solution = kernels.update_solution(
+                            evaluation_point, self.delta, alpha
+                        )
+                        residual_norm = self.assemble_system(False, lifting=False)
+                        self.log(f"  Evaluating alpha={alpha}, ||r||={residual_norm}")
+                        # NSSolver.cpp:738 uses <= (the stationary solver: <)
+                        if residual_norm <= prev_residual:
+                            break
+                        alpha *= 0.1
+                    prev_residual = residual_norm
+                else:
+                    self.log(" < tolerance")
+                    break
+                n_iter += 1
+            self.newton_residual = residual_norm
+
+        self.log("===============================================")
+
+    # ------------------------------------------------------------------
+    def solve(self, *, direct: bool = False):
+        """Implicit-Euler time loop (NSSolver.cpp:799-837).
+
+        ``direct=True`` (an extension of the reference): each step runs one
+        Newton solve at the ramp's final viscosity, warm-started from the
+        previous step, instead of replaying the Re continuation.
+        """
+        self.log("===============================================")
+        self.time = 0.0
+        self.output(0)
+        self.log("-----------------------------------------------")
+
+        o = self.options
+        T, delta_t = o.time_span, o.time_step
+        self.time_step_index = 0
+        while self.time < T - 0.5 * delta_t:
+            t0 = _time.perf_counter()
+            self.time += delta_t
+            self.time_step_index += 1
+            self.solution_old = self.solution
+            self.log(f"n = {self.time_step_index:3d}, t = {self.time:5.2f}")
+            self.solve_newton(ramp=not direct)
+            self.apply_first = False
+            self.output(self.time_step_index)
+            self.compute_lift_drag()
+            self.print_lift_coeff()
+            self.print_drag_coeff()
+            self.history.append(
+                dict(
+                    phase="step",
+                    time=self.time,
+                    step=self.time_step_index,
+                    drag_force=self.drag_force,
+                    lift_force=self.lift_force,
+                    drag_coeff=self.drag_coeff,
+                    lift_coeff=self.lift_coeff,
+                    # beyond the JAX package's entry: the Newton residual
+                    # the step ended with, and the step's wall time
+                    newton_residual=self.newton_residual,
+                    seconds=_time.perf_counter() - t0,
+                )
+            )
+            self.log("")
+
+    def solve_fused(self, **kwargs):
+        raise NotImplementedError(
+            "solve_fused (the fused time loop) is not ported yet (ROADMAP.md A.D5b)"
+        )

@@ -11,6 +11,7 @@ floating tensors -- including the multigrid chain -- to another precision.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -27,8 +28,9 @@ __all__ = ["Disc", "MGEdge", "make_disc", "disc_from_numpy"]
 # Floating tensor fields that come from the host space, and the element
 # tables; ``Disc.to`` casts both (and re-forms the JxW weights from w_ref).
 _FLOAT_FIELDS = ("cell_mask", "inlet_profile1", "neumann_rhs1", "cyl_face_mask")
-_TABLE_FIELDS = ("phi_v", "dphi_v", "phi_p", "w_ref", "cell_tabs")
+_TABLE_FIELDS = ("phi_v", "dphi_v", "phi_p", "dphi_p", "w_ref", "cell_tabs")
 _BOOL_FIELDS = ("u_active", "p_active", "u_dirichlet", "u_inlet")
+_EDGE_FIELDS = ("Pvx", "Pvy", "Evx", "Evy", "Ppx", "Ppy")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -54,6 +56,7 @@ class Disc:
     phi_v: torch.Tensor  # [n_q, n_v]
     dphi_v: torch.Tensor  # [n_q, n_v, 2] reference-element derivatives
     phi_p: torch.Tensor  # [n_q, n_p]
+    dphi_p: torch.Tensor  # [n_q, n_p, 2] (the pressure Laplacian, apply_Lp)
     w_ref: torch.Tensor  # [n_q] reference-element quadrature weights
     # fused cell kernel input (ops/cell_kernel.py): P, d/dx, d/dy stacked
     cell_tabs: torch.Tensor  # [3, n_q, n_v]
@@ -84,6 +87,23 @@ class Disc:
     @property
     def NP(self) -> tuple[int, int]:
         return (self.deg_p * self.ny + 1, self.deg_p * self.nx + 1)
+
+    # The pressure-side masks are built once per Disc: eager PyTorch would
+    # launch every mask operation again on each operator call.
+    @functools.cached_property
+    def p_outlet(self) -> torch.Tensor:
+        """Existing pressure-lattice nodes on the outlet boundary (id 8,
+        x = 2.2)."""
+        NPy, NPx = self.NP
+        col = torch.arange(NPx, device=self.device) == NPx - 1
+        return col[None, :].expand(NPy, NPx) & self.p_active
+
+    @functools.cached_property
+    def p_free(self) -> torch.Tensor:
+        """Existing pressure-lattice nodes off the outlet: the rows the
+        pressure Laplacian, ``apply_Fp`` and ``apply_Mp_raw`` do not
+        eliminate."""
+        return self.p_active & ~self.p_outlet
 
     def zeros_u(self) -> torch.Tensor:
         return torch.zeros((2,) + self.NV, dtype=self.dtype, device=self.device)
@@ -116,7 +136,9 @@ class MGEdge:
       * prolongation (coarse -> fine): ``Pvy @ x @ Pvx^T``;
       * rhs restriction: the transpose sweep, ``Pvy^T @ r @ Pvx``;
       * state restriction (fine -> coarse, for the convection
-        linearization): ``Evy @ u @ Evx^T``.
+        linearization): ``Evy @ u @ Evx^T``;
+      * the same prolongation over the pressure lattice, ``Ppy @ x @ Ppx^T``
+        (the pressure-Laplacian V-cycle, ``precond.mg.make_lp_vcycle``).
     """
 
     coarse: Disc
@@ -124,14 +146,13 @@ class MGEdge:
     Pvy: torch.Tensor  # [NVy_fine, NVy_coarse]
     Evx: torch.Tensor  # [NVx_coarse, NVx_fine]
     Evy: torch.Tensor  # [NVy_coarse, NVy_fine]
+    Ppx: torch.Tensor  # [NPx_fine, NPx_coarse]
+    Ppy: torch.Tensor  # [NPy_fine, NPy_coarse]
 
     def to(self, dtype: torch.dtype) -> "MGEdge":
         return MGEdge(
             coarse=self.coarse.to(dtype),
-            Pvx=self.Pvx.to(dtype),
-            Pvy=self.Pvy.to(dtype),
-            Evx=self.Evx.to(dtype),
-            Evy=self.Evy.to(dtype),
+            **{k: getattr(self, k).to(dtype) for k in _EDGE_FIELDS},
         )
 
 
@@ -152,6 +173,7 @@ def _element_fields(t, hx: float, hy: float, cell_mask: torch.Tensor) -> dict:
         phi_v=put(t.phi_v),
         dphi_v=put(t.dphi_v),
         phi_p=put(t.phi_p),
+        dphi_p=put(t.dphi_p),
         w_ref=put(t.w_q),
         cell_tabs=put(np.stack([t.phi_v, t.dphi_v[:, :, 0] / hx, t.dphi_v[:, :, 1] / hy])),
     )
@@ -243,7 +265,7 @@ def disc_from_numpy(
     if mg is not None:
         edge = MGEdge(
             coarse=disc_from_numpy(mg["coarse"], device=device, dtype=dtype),
-            **{k: fl(mg[k]) for k in ("Pvx", "Pvy", "Evx", "Evy")},
+            **{k: fl(mg[k]) for k in _EDGE_FIELDS},
         )
     deg = tuple(int(leaves[k]) for k in ("deg_v", "deg_p", "n_q1d"))
     hx, hy = float(leaves["hx"]), float(leaves["hy"])

@@ -54,11 +54,16 @@ __all__ = [
     "apply_B",
     "apply_Bt",
     "apply_Mp",
+    "p_outlet_mask",
+    "apply_Lp",
+    "apply_Fp",
+    "apply_Mp_raw",
     "apply_jacobian",
     "residual",
     "dirichlet_values",
     "diag_F",
     "diag_Mp",
+    "diag_Lp",
     "lift_drag_forces",
 ]
 
@@ -218,6 +223,89 @@ def apply_Mp(disc: Disc, nu, x_p: torch.Tensor) -> torch.Tensor:
     return torch.where(disc.p_active, y, x_p)
 
 
+# ---------------------------------------------------------------------------
+# Pressure-side operators of the Cahouet-Chabard and PCD Schur legs
+# ---------------------------------------------------------------------------
+
+
+def p_outlet_mask(disc: Disc) -> torch.Tensor:
+    """Pressure-lattice nodes on the outlet boundary (id 8, x = 2.2)."""
+    return disc.p_outlet
+
+
+def _p_grads(disc: Disc, loc: torch.Tensor):
+    """Physical pressure gradients [n_q, ny, nx] x 2 of gathered nodes."""
+    gx = torch.einsum("qn,nyx->qyx", disc.dphi_p[:, :, 0], loc) / disc.hx
+    gy = torch.einsum("qn,nyx->qyx", disc.dphi_p[:, :, 1], loc) / disc.hy
+    return gx, gy
+
+
+def _p_diffusion(disc: Disc, gx, gy) -> torch.Tensor:
+    """Cell-local (grad p, grad psi_n) from gradients at quadrature points."""
+    w = disc.w_q
+    dxw = disc.dphi_p[:, :, 0] * (w / disc.hx)[:, None]
+    dyw = disc.dphi_p[:, :, 1] * (w / disc.hy)[:, None]
+    mask = disc.cell_mask
+    return torch.einsum("qn,qyx->nyx", dxw, gx * mask) + torch.einsum(
+        "qn,qyx->nyx", dyw, gy * mask
+    )
+
+
+def apply_Lp(disc: Disc, x_p: torch.Tensor) -> torch.Tensor:
+    """Pressure Laplacian (grad psi_j, grad psi_i) on active cells.
+
+    Not an operator of the reference: it is the second leg of the
+    Cahouet-Chabard Schur approximation for the unsteady regime,
+    S^-1 ~ nu Mp^-1 + (1/dt) Lp^-1 (Cahouet & Chabard, Int. J. Numer.
+    Methods Fluids 8, 1988).  Natural (Neumann) conditions on the
+    velocity-Dirichlet boundaries, identity rows on the outlet column where
+    the velocity is free (which makes it nonsingular), identity rows on
+    non-existent lattice nodes.  Constrained rows AND columns are
+    eliminated, so the operator is exactly symmetric (it feeds CG and
+    Chebyshev).
+    """
+    free = disc.p_free
+    loc = _gather_p(disc, torch.where(free, x_p, 0.0))
+    y = _scatter_p(disc, _p_diffusion(disc, *_p_grads(disc, loc)))
+    return torch.where(free, y, x_p)
+
+
+def apply_Fp(disc: Disc, nu, inv_dt, linq, x_p: torch.Tensor) -> torch.Tensor:
+    """Pressure convection-diffusion operator (the PCD middle factor):
+
+        Fp = inv_dt * Mp_raw + nu * Lp + N_p(u_k),
+
+    N_p the convection (u_k . grad p, psi) from the Newton linearization at
+    the volume quadrature points, with ``apply_Lp``'s symmetric outlet and
+    inactive elimination.  ``Mp_raw`` is the unscaled pressure mass.  With
+    ``linq=None`` and inv_dt = 0, Fp = nu Lp.  No reference analog (Elman,
+    Silvester & Wathen, "Finite Elements and Fast Iterative Solvers",
+    ch. 9).
+    """
+    free = disc.p_free
+    loc = _gather_p(disc, torch.where(free, x_p, 0.0))
+    pv = torch.einsum("qn,nyx->qyx", disc.phi_p, loc)
+    gx, gy = _p_grads(disc, loc)
+    out = nu * _p_diffusion(disc, gx, gy)
+    # reaction + convection legs: (p/dt + u_k . grad p, psi)
+    f_val = inv_dt * pv
+    if linq is not None:
+        f_val = f_val + linq.u[:, 0] * gx + linq.u[:, 1] * gy
+    phi_w = disc.phi_p * disc.w_q[:, None]
+    out = out + torch.einsum("qn,qyx->nyx", phi_w, f_val * disc.cell_mask)
+    y = _scatter_p(disc, out)
+    return torch.where(free, y, x_p)
+
+
+def apply_Mp_raw(disc: Disc, x_p: torch.Tensor) -> torch.Tensor:
+    """Unscaled pressure mass with the PCD elimination (identity on outlet
+    and non-existent rows; ``apply_Mp`` keeps the reference's 1/nu scaling
+    and eliminates nothing)."""
+    free = disc.p_free
+    y = _project_p(disc, _eval_p(disc, torch.where(free, x_p, 0.0)))
+    return torch.where(free, y, x_p)
+
+
 def apply_jacobian(
     disc: Disc,
     nu,
@@ -362,6 +450,20 @@ def diag_Mp(disc: Disc, nu) -> torch.Tensor:
     d = _scatter_p(
         disc, loc[:, None, None].expand(n_p, disc.ny, disc.nx) * disc.cell_mask
     )
+    return torch.where(disc.p_active, d, 1.0)
+
+
+def diag_Lp(disc: Disc) -> torch.Tensor:
+    """Diagonal of the pressure Laplacian; constrained and non-existent rows
+    get 1.0."""
+    n_p = disc.phi_p.shape[1]
+    dx = disc.dphi_p[:, :, 0] / disc.hx
+    dy = disc.dphi_p[:, :, 1] / disc.hy
+    loc = torch.einsum("q,qn->n", disc.w_q, dx * dx + dy * dy)
+    d = _scatter_p(
+        disc, loc[:, None, None].expand(n_p, disc.ny, disc.nx) * disc.cell_mask
+    )
+    d = torch.where(disc.p_outlet, 1.0, d)
     return torch.where(disc.p_active, d, 1.0)
 
 

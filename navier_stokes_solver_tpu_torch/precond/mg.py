@@ -2,8 +2,10 @@
 
 The port of the JAX package's ``precond/mg.py`` on the slice's path: the
 rediscretization hierarchy (the channel regenerated at semi-coarsened cell
-counts, dense 1-D tensor-factor transfers) and the V-cycle with the
-fixed-step Jacobi-preconditioned GMRES smoother.  The reference
+counts, dense 1-D tensor-factor transfers over the velocity and pressure
+lattices), the velocity V-cycle with the fixed-step Jacobi-preconditioned
+GMRES smoother, and the pressure-Laplacian V-cycle of the Cahouet-Chabard
+Schur leg with Chebyshev-Jacobi smoothing.  The reference
 preconditions its stationary velocity-block inner solves with Trilinos
 ``PreconditionAMG`` (NSSolverStationary.hpp:225-231).  Dirichlet rows and
 non-existent lattice lanes are identity/diagonal rows; transfers zero them
@@ -24,10 +26,18 @@ from navier_stokes_solver_tpu_torch.ops.matfree import (
     LinearizationQ,
     _eval_v,
     apply_F,
+    apply_Lp,
     diag_F,
+    diag_Lp,
 )
 
-__all__ = ["attach_mg", "make_mg_vcycle", "mg_level_shapes", "as_dtype_scalar"]
+__all__ = [
+    "attach_mg",
+    "make_mg_vcycle",
+    "make_lp_vcycle",
+    "mg_level_shapes",
+    "as_dtype_scalar",
+]
 
 
 def as_dtype_scalar(v: float, dtype: torch.dtype) -> float:
@@ -93,6 +103,8 @@ def attach_mg(disc: Disc, *, min_cells: int = 48, max_levels: int = 8) -> Disc:
             Pvy=put(_interp_1d(nyc, ny, deg, nodes)),
             Evx=put(_interp_1d(nx, nxc, deg, nodes)),
             Evy=put(_interp_1d(ny, nyc, deg, nodes)),
+            Ppx=put(_interp_1d(nxc, nx, disc.deg_p, tables.nodes_p)),
+            Ppy=put(_interp_1d(nyc, ny, disc.deg_p, tables.nodes_p)),
         )
 
     edge = build(disc.nx, disc.ny, 0)
@@ -157,6 +169,62 @@ def _gmres_smooth(A, dinv, b, x, k: int):
     return x + dx
 
 
+def _lmax_start(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """The power iteration's start vector: standard normal draws from a CPU
+    generator seeded with 7, moved to ``device`` -- the same vector on every
+    device.  (The JAX package draws from ``PRNGKey(7)``; tests substitute
+    that vector here.)"""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    return torch.randn(shape, generator=g, dtype=torch.float64).to(device=device, dtype=dtype)
+
+
+def _estimate_lmax(A, dinv, shape, dtype: torch.dtype, device):
+    """Eight power iterations for the spectral radius of ``diag^-1 A``
+    (matrix-free, no host synchronization); a 0-dim tensor."""
+    v = _lmax_start(shape, dtype, device)
+    lam = torch.ones((), dtype=dtype, device=device)
+    for _ in range(8):
+        w = dinv * A(v)
+        lam = torch.sqrt(tvdot(w, w))
+        v = w / torch.clamp_min(lam, 1e-30)
+    return lam
+
+
+def _chebyshev_coeffs(lmax, degree: int):
+    """The scalars of ``degree`` >= 1 Chebyshev steps on [lmax/4, 1.1 lmax]
+    -- the classic smoothing window: only the high end of the spectrum must
+    be damped (``lmax`` a 0-dim tensor).  Built once per V-cycle: eager
+    PyTorch would launch each of these 0-dim operations in every step."""
+    lmin = lmax / 4.0
+    lmax = 1.1 * lmax
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    steps = []
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        steps.append((rho_new * rho, 2.0 * rho_new / delta))
+        rho = rho_new
+    return theta, steps
+
+
+def _chebyshev(A, dinv, coeffs, b, x=None):
+    """Chebyshev-accelerated Jacobi smoothing (``dinv`` the inverse
+    diagonal, ``coeffs`` from ``_chebyshev_coeffs``); ``x=None`` starts
+    from zero without applying ``A`` to it.  The JAX package's loop also
+    forms one more residual and direction, which its result never reads."""
+    r = b if x is None else b - A(x)
+    theta, steps = coeffs
+    d = dinv * r / theta
+    x = d if x is None else x + d
+    for a, c in steps:
+        r = b - A(x)
+        d = a * d + c * (dinv * r)
+        x = x + d
+    return x
+
+
 def make_mg_vcycle(
     disc: Disc,
     nu: float,
@@ -182,7 +250,8 @@ def make_mg_vcycle(
     if smoother != "gmres":
         raise NotImplementedError(
             f"mg_smoother={smoother!r} is not ported yet; only 'gmres' is "
-            "(ROADMAP.md A.D3: _chebyshev and _estimate_lmax)"
+            "(ROADMAP.md A.D3: the Chebyshev-Jacobi and Schwarz velocity "
+            "smoothers)"
         )
     out_dtype = disc.dtype
     if dtype is not None and dtype != disc.dtype:
@@ -249,3 +318,66 @@ def make_mg_vcycle(
         return vcycle(0, b.to(disc.dtype)).to(out_dtype)
 
     return M
+
+
+def make_lp_vcycle(disc: Disc):
+    """Build ``M(b) -> x``: one V(2, 2) cycle on the pressure Laplacian (the
+    (1/dt) Lp^-1 leg of the Cahouet-Chabard Schur approximation,
+    ``ops.matfree.apply_Lp``), in the dtype of ``disc``.
+
+    The hierarchy reuses the velocity chain's coarse discretizations with
+    the pressure-lattice transfers (``MGEdge.Ppx/Ppy``).  Lp is SPD:
+    Chebyshev-Jacobi smoothing with one spectral estimate on the finest
+    level, reused below, and a Jacobi-CG coarse solve (at most 48
+    iterations, to rel 5e-2, as the velocity cycle's).  Coarse levels drop
+    the voxelized cylinder (full rectangle, every pressure node active):
+    each level voxelizes the hole on its own lattice, and corrections
+    interpolated across a differently shaped hole diverge (the JAX
+    package's ``make_lp_vcycle`` records why).  The restricted residual is
+    still masked with the coarse level's own active nodes, as there.
+    """
+    levels = []  # (disc, A, dinv, edge)
+    d = disc
+    cheb = None  # one spectral estimate, on the finest level
+    while True:
+        dloc = d
+        if levels:  # coarse level: full rectangle, no hole
+            dloc = dloc.replace(
+                cell_mask=torch.ones_like(dloc.cell_mask),
+                p_active=torch.ones_like(dloc.p_active),
+            )
+        A = lambda x, _d=dloc: apply_Lp(_d, x)
+        dinv = 1.0 / diag_Lp(dloc)
+        if cheb is None:
+            lmax = _estimate_lmax(A, dinv, dloc.NP, dloc.dtype, dloc.device)
+            cheb = _chebyshev_coeffs(lmax, 2)
+        levels.append((dloc, A, dinv, dloc.mg))
+        if d.mg is None:
+            break
+        d = d.mg.coarse
+
+    def interior(d, x):
+        return torch.where(d.p_free, x, 0.0)
+
+    def restrict(edge: MGEdge, r):
+        return torch.einsum("yY,yx,xX->YX", edge.Ppy, r, edge.Ppx)
+
+    def prolong(edge: MGEdge, x):
+        return torch.einsum("Yy,yx,Xx->YX", edge.Ppy, x, edge.Ppx)
+
+    def vcycle(li: int, b):
+        d, A, dinv, edge = levels[li]
+        if li == len(levels) - 1:
+            x, _ = cg(
+                A, b, torch.zeros_like(b), tol=5e-2 * torch.sqrt(tvdot(b, b)),
+                maxiter=48, M=lambda r: dinv * r,
+            )
+            return x
+        x = _chebyshev(A, dinv, cheb, b)
+        r = interior(d, b - A(x))
+        bc = interior(edge.coarse, restrict(edge, r))
+        xc = vcycle(li + 1, bc)
+        x = x + interior(d, prolong(edge, xc))
+        return _chebyshev(A, dinv, cheb, b, x)
+
+    return lambda b: vcycle(0, b)

@@ -137,8 +137,8 @@ def test_krylov_lo_cycle_operators(discs, stokes):
 UNPORTED = [  # (kind, cfg, variant, ROADMAP item the message must name)
     (0, {}, "stationary", "A.D1"),
     (2, {}, "stationary", "A.D1"),
-    (1, {}, "unsteady", "A.D5"),
-    (1, {"schur_mode": "cahouet"}, "stationary", "A.D5"),
+    (0, {}, "unsteady", "A.D1"),
+    (2, {}, "unsteady", "A.D1"),
     (1, {"inner_mode": "fixed"}, "stationary", "A.D3"),
     (1, {"mg_smoother": "jacobi"}, "stationary", "A.D3"),
     (1, {"direct_lu": True}, "stationary", "A.D7"),

@@ -139,7 +139,7 @@ OUTSIDE_THE_SLICE = [  # (option, ROADMAP item the message must name)
     (dict(preconditioner_type=0), "A.D1"),
     (dict(preconditioner_type=2), "A.D1"),
     (dict(multigrid=False), "A.D3"),
-    (dict(precond_config=PrecondConfig(schur_mode="pcd")), "A.D5"),
+    (dict(precond_config=PrecondConfig(inner_mode="fixed")), "A.D3"),
 ]
 
 
@@ -150,8 +150,11 @@ def test_options_outside_the_slice_raise():
 
 
 def test_options_need_an_explicit_device():
-    """No device is chosen for the caller: leaving it out is an error."""
-    with pytest.raises(TypeError, match="device"):
-        SolverOptions(**BASE)
-    with pytest.raises(TypeError, match="device"):
-        NSSolverStationary(**BASE)
+    """The device is the card unless the caller asks for the CPU: without a
+    card, leaving it out fails in ``setup()`` -- never a silent fallback."""
+    assert SolverOptions(**BASE).device == "cuda"
+    s = NSSolverStationary(**BASE)
+    assert s.device.type == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            s.setup()
