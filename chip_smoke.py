@@ -11,14 +11,15 @@ Phases (each raises on failure; none catches another's):
                 per source, started together) and print ptxas's register
                 and spill report;
   3. check    -- each kernel against its plain PyTorch version on the card,
-                at 100x70 Q3/Q2, 20x9 Q2/Q1, 300x100 Q3/Q2 and every
-                multigrid level of both main paths: ``cell_apply_F`` (both
+                at 100x70, 300x100 and 100x33 Q3/Q2 (the three main paths),
+                20x9 Q2/Q1 and every multigrid level of the main paths:
+                ``cell_apply_F`` (both
                 entry points, and a permuted lattice layout) within rtol =
                 atol 1e-5 (f32) and 1e-12 (f64); ``scatter_v_bc`` bit for
                 bit (max |diff| == 0), with and without the boundary rows;
                 every operand's largest element offset must fit the
                 kernels' 32-bit indexing;
-  4. time     -- at 100x70, 300x100 and every multigrid level of both, f32,
+  4. time     -- at every multigrid level of the three main paths, f32,
                 both regimes:
                 each kernel's device time (CUDA events around 200
                 back-to-back launches queued behind a sleep kernel, so the
@@ -29,8 +30,8 @@ Phases (each raises on failure; none catches another's):
   5. launches -- one ``apply_F`` on CUDA in a ``torch.profiler`` window must
                 run exactly two device kernels, these two;
   6. main     -- the stationary 100x70 Q3/Q2 solve at the tuned ``bench.py``
-                configuration through ``NSSolverStationary``, twice (their
-                walls show the spread within one process): the drag must match
+                configuration through ``NSSolverStationary``, ``SOLVES``
+                times (once: a depth cut): the drag must match
                 ``BENCH_r05.json`` within rtol 1e-7, the outer Krylov count
                 stay within 2 x 589, and every kernel of the path must have
                 launched (counts zeroed just before each solve, read just
@@ -40,7 +41,8 @@ Phases (each raises on failure; none catches another's):
                 iteration in each regime, from profiler windows of 1 and 4
                 outer iterations (difference);
   8. unsteady-check -- ``NSSolver.solve()`` (the per-step Re ramp) at 32x12
-                Q3/Q2, Re 20, two steps, all-f64 preconditioner, once on the
+                Q3/Q2, Re 20, ``CHECK_STEPS`` (two) steps, so the second
+                starts from carried state, all-f64 preconditioner, once on the
                 card and once on the CPU (the plain versions): per-solve
                 Krylov counts equal (or each within 1, printed), drag and
                 lift per step within rtol 1e-7, fields within 1e-6 of their
@@ -56,12 +58,38 @@ Phases (each raises on failure; none catches another's):
                 kernel must have launched);
  10. unsteady-outer -- phase 7's profile in the unsteady Newton regime at
                 the state the run ended in, with our kernels' share;
- 11. report   -- one JSON line of per-kernel results, the nvidia-smi line,
+ 11. config1  -- (run after phase 5) BASELINE.json configs[0] through the
+                port's CLI, in this process (``cli.stationary.run``), not
+                cut: 100x33 Q3/Q2
+                (73,180 DoFs), Re 20, GMRES + blockDiagonal (the
+                reference's default preconditioner), tol 1e-8: setup and
+                solve walls, outers per tangent solve and in total (at most
+                2 x the 1,846 on record), the drag coefficient within rtol
+                1e-6 of the ``PERF_NORTHSTAR.json`` value, launches of both
+                kernels (counts zeroed just before, read just after), then
+                phase 7's profile in its (Stokes) regime;
+ 12. matrix   -- the slice's options on the card against the CPU, all-f64,
+                at 24x10: whole solves where the two trajectories agree
+                (blockDiagonal Re 30, the jacobi and schwarz smoothers,
+                ``inner_mode="fixed"``, ``multigrid=False``: counts within
+                1 per solve, drag and lift rtol 1e-7, fields 1e-6 of their
+                magnitude); tangent solves capped inside the agreeing
+                stretch for the chaotic ones (GMRES, BiCGStab, aSIMPLE,
+                unsteady blockDiagonal: counts equal, residual and iterate
+                within 1e-10); whole aSIMPLE, BiCGStab and unsteady
+                blockDiagonal solves on the card alone (finite, converged);
+ 13. profile  -- a small CLI solve with ``--profile-dir``: the Chrome trace
+                must name both kernels;
+ 14. report   -- one JSON line of per-kernel results (launches from phase
+                11 and times at its finest level, 100x33 Stokes, with every
+                path's launches and every shape's times beside them), the
+                nvidia-smi line,
                 then the final ``{"ok": true, "device": ...}`` line.
 
 If the script outgrows its time budget, depth is cut, in this order: the
-stationary solve to one run (``SOLVES``), then the unsteady run to one
-step (``UNSTEADY_STEPS``); never the mesh.  The cut is printed.
+stationary bench solve to one run (``SOLVES``, taken), then the unsteady
+run to one step (``UNSTEADY_STEPS``); never a mesh of the main paths and
+never the unsteady check's second step.  The cut is printed.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -90,7 +118,7 @@ KERNEL_NU, KERNEL_INV_DT = 0.05, 100.0  # inv_dt of the unsteady path (dt 0.01)
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 TIMED_CALLS, HOST_CALLS, PLAIN_CALLS = 200, 50, 20
 OUTER_WINDOW = 4
-SOLVES = 2  # stationary runs (the first depth cut: 1)
+SOLVES = 1  # stationary runs (cut from 2 to 1 to make room for phases 12-14)
 # the unsteady north star (BASELINE.json): 300x100 Q3/Q2, Re 100, dt 0.01
 UNSTEADY_MESH = (300, 100)
 UNSTEADY_DOFS = 657_740
@@ -100,6 +128,51 @@ CHECK_MESH = (32, 12)  # unsteady-check: card against CPU
 CHECK_RE, CHECK_STEPS = 20.0, 2
 FIELD_GATE = 1e-6  # BASELINE.md, relative to each field's largest magnitude
 INDEX_LIMIT = 2**31  # the kernels index in 32 bits
+# BASELINE.json configs[0] through the port's CLI, not cut: 100x33 Q3/Q2
+# (73,180 DoFs), Re 20, GMRES + blockDiagonal (the reference's default
+# preconditioner), tol 1e-8, default f32 preconditioner
+CONFIG1_MESH = (100, 33)
+CONFIG1_ARGV = ["-m", "100,33", "-r", "20", "-s", "0", "-p", "0", "-t", "1e-8", "--quiet"]
+CONFIG1_METRIC = "stationary_100x33_Re20_GMRES_blockDiagonal_tol1e-8"  # PERF_NORTHSTAR.json
+CONFIG1_DOFS = 73_180
+CONFIG1_DRAG_RTOL = 1e-6
+# card-vs-CPU matrix of the slice's options, all-f64, at 24x10 (the 32x12
+# matrix did not fit the time limit).  Left-preconditioned GMRES, BiCGStab
+# and aSIMPLE under inexact inner solves are chaotic: a rounding difference
+# grows until the stopping iteration moves, and whole solves on the card and
+# the CPU end many outers apart.  Those configurations are
+# compared as tangent solves capped inside the stretch where the two
+# trajectories agree, and run whole on the card alone; the others are
+# compared as whole solves.
+MATRIX_MESH = (24, 10)
+MATRIX = [  # whole solves, card vs CPU: (entry, unsteady, SolverOptions fields, PrecondConfig fields)
+    ("stationary -p 0 Re 30", False, dict(preconditioner_type=0, Re=30.0), {}),
+    ("stationary Re 20 mg_smoother=jacobi", False, {}, dict(mg_smoother="jacobi")),
+    ("stationary Re 20 mg_smoother=schwarz", False, {}, dict(mg_smoother="schwarz")),
+    ("stationary Re 20 inner_mode=fixed", False, {}, dict(inner_mode="fixed")),
+    ("stationary Re 20 multigrid=False", False, dict(multigrid=False), {}),
+]
+MATRIX_CARD_ONLY = [  # whole solves on the card: they must converge
+    ("stationary -p 2 Re 20 --stokes-schur mass", False, dict(preconditioner_type=2),
+     dict(asimple_stokes_schur="mass")),
+    # BiCGStab needs a near-linear preconditioner: with the reference's
+    # inexact inner solves it stagnates until rho = <rbar, r> vanishes
+    ("stationary -s 2 -p 1 Re 20 (inner rel 1e-6)", False, dict(solver_type=2, preconditioner_type=1),
+     dict(tri_rel_u_stokes=1e-6, tri_rel_p_stokes=1e-6)),
+    ("unsteady -p 0 Re 20", True, dict(preconditioner_type=0), {}),
+]
+MATRIX_TANGENT = {  # capped tangent solves, card vs CPU: (solver, prec, variant, stokes, maxiter, cfg)
+    "fgmres aSIMPLE stationary stokes (mass)": (1, 2, "stationary", True, 30, dict(asimple_stokes_schur="mass")),
+    "fgmres aSIMPLE stationary newton": (1, 2, "stationary", False, 30, {}),
+    "fgmres blockDiagonal unsteady newton": (1, 0, "unsteady", False, 30, {}),
+    "fgmres aSIMPLE unsteady newton": (1, 2, "unsteady", False, 30, {}),
+    "gmres blockDiagonal stationary stokes": (0, 0, "stationary", True, 30, {}),
+    "bicgstab blockTriangular stationary stokes": (2, 1, "stationary", True, 5, {}),
+    "bicgstab aSIMPLE unsteady newton": (2, 2, "unsteady", False, 5, {}),
+}
+MATRIX_FIELD_GATE = 1e-6  # relative to each field's largest magnitude
+# the unsteady entry: one direct step (Re 11, the ramp's last level)
+MATRIX_UNSTEADY = dict(tolerance=1e-6, krylov_basis=100)
 SOURCES = {
     "cell_apply_F": "navier_stokes_solver_tpu_torch/csrc/cell_apply_f.cu",
     "scatter_v_bc": "navier_stokes_solver_tpu_torch/csrc/scatter_v.cu",
@@ -246,10 +319,19 @@ def scatter_cost(disc, with_bc):
 
 
 def kernel_shapes(device):
-    """(mesh, degree) pairs: the 100x70 and 300x100 Q3/Q2 main paths, 20x9
-    Q2/Q1, and every coarse level of both main paths' multigrid chains."""
-    coarse = mg_shapes(device, BENCH_MESH)[1:] + mg_shapes(device, UNSTEADY_MESH)[1:]
-    return [(BENCH_MESH, (3, 2)), ((20, 9), (2, 1)), (UNSTEADY_MESH, (3, 2))] + [(s, (3, 2)) for s in coarse]
+    """(mesh, degree) pairs: the 100x70, 300x100 and 100x33 Q3/Q2 main
+    paths, 20x9 Q2/Q1, and every coarse level of the main paths' multigrid
+    chains (each shape once)."""
+    fine = [(BENCH_MESH, (3, 2)), ((20, 9), (2, 1)), (UNSTEADY_MESH, (3, 2)), (CONFIG1_MESH, (3, 2))]
+    coarse = [s for s in chain_shapes(device) if s not in (BENCH_MESH, UNSTEADY_MESH, CONFIG1_MESH)]
+    return fine + [(s, (3, 2)) for s in coarse]
+
+
+def chain_shapes(device):
+    """Every multigrid level of the three main paths, finest first, each
+    shape once."""
+    shapes = mg_shapes(device, BENCH_MESH) + mg_shapes(device, UNSTEADY_MESH) + mg_shapes(device, CONFIG1_MESH)
+    return list(dict.fromkeys(shapes))
 
 
 def mg_shapes(device, mesh):
@@ -281,7 +363,7 @@ def phase_check(device):
 
     err_a = err_b = 0.0
     for mesh, deg in kernel_shapes(device):
-        dtypes = (torch.float32, torch.float64) if mesh in (BENCH_MESH, (20, 9), UNSTEADY_MESH) else (torch.float32,)
+        dtypes = (torch.float32, torch.float64) if mesh in (BENCH_MESH, (20, 9), UNSTEADY_MESH, CONFIG1_MESH) else (torch.float32,)
         for dtype in dtypes:
             disc, linq, x, bc = kernel_case(device, mesh, deg, dtype)
             # the layout a multigrid transfer's einsum hands the kernel
@@ -330,8 +412,8 @@ def phase_check(device):
 
 
 def phase_time(device):
-    """Per kernel: {shape tag: timing record}, f32, at 100x70 and every
-    multigrid level."""
+    """Per kernel: {shape tag: timing record}, f32, at every multigrid
+    level of the three main paths."""
     import torch
 
     from navier_stokes_solver_tpu_torch.ops.cell_kernel import (
@@ -342,7 +424,7 @@ def phase_time(device):
     from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
 
     out = {"cell_apply_F": {}, "scatter_v_bc": {}}
-    for mesh in mg_shapes(device, BENCH_MESH) + mg_shapes(device, UNSTEADY_MESH):
+    for mesh in chain_shapes(device):
         disc, linq, x, bc = kernel_case(device, mesh, (3, 2), torch.float32)
         shape = f"{mesh[0]}x{mesh[1]} Q3/Q2 float32"
         for stokes in (True, False):
@@ -694,16 +776,202 @@ def phase_unsteady_main(device):
 
 
 # ---------------------------------------------------------------------------
+# 12. config1, 13. matrix, 14. profile
+# ---------------------------------------------------------------------------
+
+
+def northstar(metric):
+    """The ``PERF_NORTHSTAR.json`` record (one JSON object per line) of
+    ``metric``."""
+    with open(os.path.join(ROOT, "PERF_NORTHSTAR.json")) as f:
+        for line in f:
+            rec = json.loads(line) if line.strip() else {}
+            if rec.get("metric") == metric:
+                return rec
+    raise RuntimeError(f"PERF_NORTHSTAR.json has no {metric!r} record")
+
+
+def phase_config1(device):
+    """BASELINE config 1 through the port's CLI, in this process (so the
+    launch counts read): counts zeroed just before, read just after."""
+    import numpy as np
+
+    from navier_stokes_solver_tpu_torch.cli import stationary as cli
+
+    ref = northstar(CONFIG1_METRIC)["extra"]
+    argv = CONFIG1_ARGV + ["--device", str(device)]
+    reset_counts()
+    s = cli.run(argv)
+    counts = read_counts()
+    per_solve = [h.get("krylov_iters") for h in s.history]
+    total = sum(x or 0 for x in per_solve)
+    u, p = s.fields()
+    rel = abs(s.drag_coeff - ref["drag_coeff"]) / abs(ref["drag_coeff"])
+    print(f"[config1] cli.stationary {' '.join(argv)}: n_dofs {s.n_dofs}, setup {s.setup_seconds:.3f} s, solve wall {s.solve_seconds!r} s")
+    print(f"[config1] phases {json.dumps(s.timer.summary())}")
+    print(f"[config1] outer iterations {total} (JAX package on the TPU {ref['total_krylov_iters']}, gate 2 x that) over {s.timer.counts['krylov_solve']} tangent solves; per solve {per_solve}")
+    print(f"[config1] drag coefficient {s.drag_coeff!r} (recorded {ref['drag_coeff']!r}, rel diff {rel:.3e}, gate {CONFIG1_DRAG_RTOL:g}), lift coefficient {s.lift_coeff!r}")
+    print(f"[config1] launches {json.dumps(counts)}")
+    if s.n_dofs != CONFIG1_DOFS:
+        raise RuntimeError(f"config1: DoF count {s.n_dofs} != {CONFIG1_DOFS}")
+    if u.shape != (2,) + s.disc.NV or p.shape != s.disc.NP or not (np.isfinite(u).all() and np.isfinite(p).all()):
+        raise RuntimeError("config1: solution fields are not finite or have the wrong shape")
+    for name, c in counts.items():
+        if c["launches"] <= 0:
+            raise RuntimeError(f"config1 never launched {name}")
+    if not rel <= CONFIG1_DRAG_RTOL:
+        raise RuntimeError(f"config1: drag coefficient {s.drag_coeff!r} not within rtol {CONFIG1_DRAG_RTOL} of {ref['drag_coeff']!r}")
+    if total > 2 * ref["total_krylov_iters"]:
+        raise RuntimeError(f"config1: {total} outer iterations exceed 2 x {ref['total_krylov_iters']}")
+    return s, {"wall_s": s.solve_seconds, "setup_s": s.setup_seconds, "outer": total, "per_solve": per_solve, "drag": s.drag_coeff, "counts": counts}
+
+
+def matrix_run(device, unsteady, fields, cfg):
+    from navier_stokes_solver_tpu_torch.api import NSSolver, NSSolverStationary, SolverOptions
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    o = dict(
+        mesh_size=MATRIX_MESH, degree_velocity=3, degree_pressure=2, Re=20.0, solver_type=1,
+        verbose=False, device=device,
+        precond_config=PrecondConfig(vmult_dtype=None, mg_dtype=None, **cfg),
+    )
+    if unsteady:
+        o.update(MATRIX_UNSTEADY, time_span=UNSTEADY_DT, time_step=UNSTEADY_DT)
+        s = NSSolver(SolverOptions(**{**o, **fields})).setup()
+        s.solve(direct=True)
+        return s, [(h["drag_coeff"], h["lift_coeff"]) for h in steps_of(s)]
+    s = NSSolverStationary(SolverOptions(**{**o, "tolerance": 1e-8, "skip_futile_stokes": True, **fields})).setup()
+    s.solve_newton()
+    s.compute_lift_drag()
+    s.compute_drag_coeff()
+    s.compute_lift_coeff()
+    return s, [(s.drag_coeff, s.lift_coeff)]
+
+
+def phase_matrix(device):
+    """``MATRIX`` on the card and on the CPU (the plain versions), all-f64:
+    Newton histories equal, Krylov counts per solve within 1, drag and lift
+    within rtol 1e-7 (the lift floored at 1e-7 of the drag), fields within
+    1e-6 of their magnitude.  Then ``MATRIX_TANGENT`` (card vs CPU) and
+    ``MATRIX_CARD_ONLY``."""
+    import numpy as np
+    import torch
+
+    key = lambda h: (h["phase"], h["nu"], h["n_iter"])
+    t_all = time.perf_counter()
+    for name, unsteady, fields, cfg in MATRIX:
+        runs, walls = {}, {}
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            t0 = time.perf_counter()
+            runs[where] = matrix_run(dev, unsteady, fields, cfg)
+            walls[where] = time.perf_counter() - t0
+        (g, gf), (c, cf) = runs["card"], runs["cpu"]
+        sg, sc = solves_of(g), solves_of(c)
+        counts = [(hg.get("krylov_iters", 0), hc.get("krylov_iters", 0)) for hg, hc in zip(sg, sc)]
+        print(f"[matrix] {name}: walls card {walls['card']:.2f} s, CPU {walls['cpu']:.2f} s; Krylov counts (card, CPU) per solve {counts}")
+        if [key(h) for h in sg] != [key(h) for h in sc]:
+            raise RuntimeError(f"matrix {name}: the card's Newton history differs from the CPU's")
+        if any(abs(a - b) > 1 for a, b in counts):
+            raise RuntimeError(f"matrix {name}: Krylov counts {counts} differ by more than 1")
+        for (dg, lg), (dc, lc) in zip(gf, cf):
+            print(f"[matrix] {name}: drag card {dg!r} CPU {dc!r} (|diff| {abs(dg - dc):.3e}); lift card {lg!r} CPU {lc!r} (|diff| {abs(lg - lc):.3e})")
+            if not (abs(dg - dc) <= 1e-7 * abs(dc) and abs(lg - lc) <= 1e-7 * max(abs(lc), abs(dc))):
+                raise RuntimeError(f"matrix {name}: drag/lift outside rtol 1e-7")
+        for field, a, b in zip(("velocity", "pressure"), g.fields(), c.fields()):
+            err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+            print(f"[matrix] {name}: {field} max|card - CPU| {err:.3e} (max|CPU| {scale:.3e})")
+            if not err <= MATRIX_FIELD_GATE * scale:
+                raise RuntimeError(f"matrix {name}: {field} differs by {err} > {MATRIX_FIELD_GATE} x {scale}")
+    matrix_tangent(device)
+    for name, unsteady, fields, cfg in MATRIX_CARD_ONLY:
+        t0 = time.perf_counter()
+        s, forces = matrix_run(device, unsteady, fields, cfg)
+        u, p = s.fields()
+        counts = [h.get("krylov_iters", 0) for h in solves_of(s)]
+        print(f"[matrix] {name} (card only): wall {time.perf_counter() - t0:.2f} s, Krylov counts per solve {counts}, drag and lift {forces}")
+        if not (np.isfinite(u).all() and np.isfinite(p).all() and np.isfinite(forces).all()) or sum(counts) <= 0:
+            raise RuntimeError(f"matrix {name}: no finite converged solve on the card")
+    print(f"[matrix] {len(MATRIX)} whole-solve entries, {len(MATRIX_TANGENT)} tangent solves and {len(MATRIX_CARD_ONLY)} card-only solves at {MATRIX_MESH[0]}x{MATRIX_MESH[1]} in {time.perf_counter() - t_all:.1f} s")
+
+
+def matrix_tangent(device):
+    """Each ``MATRIX_TANGENT`` solve (``api.kernels.solve_kernel``: method,
+    preconditioner and initial-guess projection) from one seeded state, on
+    the card and on the CPU, capped at ``maxiter`` (tol 1e-14 stops none):
+    equal counts and flags, residual norms and iterates within 1e-10."""
+    import numpy as np
+    import torch
+
+    from navier_stokes_solver_tpu_torch.api import kernels
+    from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry, make_fe_space
+    from navier_stokes_solver_tpu_torch.ops import Blocks, make_disc
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig, attach_mg
+
+    space = make_fe_space(make_channel_geometry(*MATRIX_MESH), 3, 2)
+    cpu = attach_mg(make_disc(space, torch.float64, "cpu"))
+    discs = {"card": attach_mg(make_disc(space, torch.float64, device)), "cpu": cpu}
+    rng = np.random.default_rng(1)
+    u = 0.3 * rng.standard_normal((2,) + cpu.NV) * cpu.u_active.numpy()
+    p = rng.standard_normal(cpu.NP) * cpu.p_active.numpy()
+    states = {k: Blocks(torch.as_tensor(u, device=d.device), torch.as_tensor(p, device=d.device)) for k, d in discs.items()}
+    nu = 1.0 / 20.0
+    for name, (solver, prec, variant, stokes, n, cfg) in MATRIX_TANGENT.items():
+        inv_dt = 1.0 / UNSTEADY_DT if variant == "unsteady" else 0.0
+        out = {}
+        for where in ("card", "cpu"):
+            d, st = discs[where], states[where]
+            rhs, _ = kernels.assemble_kernel(d, nu, inv_dt, st, st.u, 0.0, stokes=stokes)
+            out[where] = kernels.solve_kernel(
+                d, nu, inv_dt, st, rhs, st, 0.0, 1e-14, stokes=stokes, solver_type=solver,
+                prec_type=prec, variant=variant, maxiter=n,
+                precond_cfg=PrecondConfig(vmult_dtype=None, mg_dtype=None, **cfg),
+            )
+        (xg, ig), (xc, ic) = out["card"], out["cpu"]
+        err = max(
+            float((a.cpu() - b).abs().max()) / float(b.abs().max()) for a, b in zip(xg, xc)
+        )
+        print(f"[matrix] tangent {name}: iterations card {ig.iters} CPU {ic.iters}, residual card {ig.resnorm!r} CPU {ic.resnorm!r}, iterate rel diff {err:.3e}")
+        if (ig.iters, ig.failed) != (ic.iters, ic.failed) or ig.iters != n:
+            raise RuntimeError(f"matrix tangent {name}: iterations/flags differ: {ig} vs {ic}")
+        if not (abs(ig.resnorm - ic.resnorm) <= 1e-10 * abs(ic.resnorm) and err <= 1e-10):
+            raise RuntimeError(f"matrix tangent {name}: card and CPU differ beyond 1e-10")
+
+
+def phase_profile(device):
+    """A small CLI solve with ``--profile-dir``: the trace file must exist
+    and name both kernels.  Written under the git-ignored ``_chip/`` and
+    removed after the check."""
+    import shutil
+
+    from navier_stokes_solver_tpu_torch.cli import stationary as cli
+    from navier_stokes_solver_tpu_torch.obs import TRACE_FILE
+
+    d = os.path.join(ROOT, "_chip", "profile")
+    shutil.rmtree(d, ignore_errors=True)
+    cli.run(["-m", "16,8", "-r", "20", "-p", "1", "-t", "1e-1", "--direct", "--quiet", "--profile-dir", d, "--device", str(device)])
+    path = os.path.join(d, TRACE_FILE)
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    size = os.path.getsize(path)
+    shutil.rmtree(d)
+    found = {k: any(k in n for n in names) for k in ("cell_apply_f_kernel", "scatter_v_kernel")}
+    print(f"[profile] --profile-dir trace {size} bytes, {len(names)} distinct event names; kernels found {json.dumps(found)}")
+    if not all(found.values()):
+        raise RuntimeError(f"the --profile-dir trace does not name both kernels: {found}")
+
+
+# ---------------------------------------------------------------------------
 # report
 # ---------------------------------------------------------------------------
 
 
 def kernel_line(errs, times, counts, counts_by_path):
-    """The kernels of this slice's main path (the unsteady 300x100 run):
-    launches from that run, times at its finest level; launches on every
-    main path beside them."""
-    mesh = f"{UNSTEADY_MESH[0]}x{UNSTEADY_MESH[1]} Q3/Q2 float32"
-    main_tag = {"cell_apply_F": f"{mesh} newton", "scatter_v_bc": f"{mesh} bc"}
+    """The kernels of the slices' main paths: launches from this slice's
+    (BASELINE config 1 through the CLI) and times at its finest level, in
+    its (Stokes) regime; launches on every main path, and times at every
+    shape, beside them."""
+    mesh = f"{CONFIG1_MESH[0]}x{CONFIG1_MESH[1]} Q3/Q2 float32"
+    main_tag = {"cell_apply_F": f"{mesh} stokes", "scatter_v_bc": f"{mesh} bc"}
     rows = []
     for name in ("cell_apply_F", "scatter_v_bc"):
         rec = times[name][main_tag[name]]
@@ -735,11 +1003,19 @@ def main():
     device = phase_device()
     import torch
 
-    print(f"[budget] depth: stationary solves {SOLVES} of 2, unsteady steps {UNSTEADY_STEPS} of 2 (the 800 steps of T = 8 cut to 2)")
+    print(
+        f"[budget] depth: stationary bench solves {SOLVES} of 2, unsteady-check steps {CHECK_STEPS} (not cut), unsteady steps {UNSTEADY_STEPS} of 2 "
+        f"(the 800 steps of T = 8 cut to 2); config 1 not cut; matrix at {MATRIX_MESH[0]}x{MATRIX_MESH[1]}, "
+        f"unsteady entries one direct step at {json.dumps(MATRIX_UNSTEADY)}"
+    )
     phase_build()
     errs = phase_check(device)
     times = phase_time(device)
     phase_launches(device)
+    s1, config1 = phase_config1(device)
+    c1outer = phase_outer(s1, regimes=(True,), tag="config1-outer")
+    print(f"[config1] setup {config1['setup_s']:.3f} s, solve wall {config1['wall_s']!r} s, {config1['outer']} outers; Stokes regime per outer iteration: {c1outer['stokes']['kernels']!r} device kernels, {c1outer['stokes']['device_ms']!r} device ms, {c1outer['stokes']['readbacks']!r} readbacks, busy {c1outer['stokes']['busy']:.4f}")
+    del s1
     with open(os.path.join(ROOT, "BENCH_r05.json")) as f:
         ref = json.load(f)["parsed"]["extra"]
     runs = []
@@ -753,8 +1029,11 @@ def main():
     su, unsteady = phase_unsteady_main(device)
     uouter = phase_outer(su, regimes=(False,), tag="unsteady-outer")
     print(f"[unsteady-main] per-step walls {[r['wall_s'] for r in unsteady['steps']]} s; outer iterations per step {[r['outer'] for r in unsteady['steps']]}; Newton regime per outer iteration: {uouter['newton']['kernels']!r} device kernels, {uouter['newton']['readbacks']!r} readbacks, busy {uouter['newton']['busy']:.4f}")
-    counts_by_path = {"stationary": runs[0]["counts"], "unsteady": unsteady["counts"]}
-    print(kernel_line(errs, times, unsteady["counts"], counts_by_path))
+    del su
+    phase_matrix(device)
+    phase_profile(device)
+    counts_by_path = {"stationary": runs[0]["counts"], "unsteady": unsteady["counts"], "config1_blockdiag": config1["counts"]}
+    print(kernel_line(errs, times, config1["counts"], counts_by_path))
     print(f"[budget] script wall {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

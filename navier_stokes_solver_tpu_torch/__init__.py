@@ -1,10 +1,12 @@
-"""PyTorch/CUDA port of the Navier-Stokes solver (stationary structured slice).
+"""PyTorch/CUDA port of the Navier-Stokes solver (structured channel).
 
 A second package beside the JAX reference ``navier_stokes_solver_tpu``: the
 same matrix-free Q3/Q2 (or Q2/Q1) Taylor-Hood discretization of the
-Schaefer-Turek channel, Newton continuation, FGMRES with GMRES-IR restart
-cycles and the blockTriangular preconditioner with a geometric-multigrid
-velocity leg -- written as plain functions on torch tensors.  The fused
+Schaefer-Turek channel, stationary Newton continuation and the unsteady
+implicit-Euler loop, GMRES / FGMRES (with GMRES-IR restart cycles) /
+BiCGStab and the blockDiagonal, blockTriangular and aSIMPLE preconditioners
+with a geometric-multigrid velocity leg, and the reference's two command-line
+programs (``cli/``) -- written as plain functions on torch tensors.  The fused
 per-cell velocity-block apply is a hand-written CUDA kernel
 (``csrc/cell_apply_f.cu``, bound in ``ops/cell_kernel.py``).
 

@@ -15,36 +15,54 @@ from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry, make_
 from navier_stokes_solver_tpu_torch.obs import PhaseTimer
 from navier_stokes_solver_tpu_torch.ops import Blocks, make_disc
 from navier_stokes_solver_tpu_torch.precond import PrecondConfig, attach_mg
+from navier_stokes_solver_tpu_torch.precond.blocks import PRECONDITIONER_NAMES, torch_dtype
 
-__all__ = ["SolverOptions", "NSSolverBase", "state_from_numpy"]
+__all__ = [
+    "SolverOptions",
+    "NSSolverBase",
+    "state_from_numpy",
+    "SOLVER_NAMES",
+    "PRECONDITIONER_NAMES",
+]
+
+SOLVER_NAMES = {0: "GMRES", 1: "FGMRES", 2: "Bicgstab"}
 
 
 @dataclasses.dataclass
 class SolverOptions:
-    """CLI-equivalent configuration (defaults from test.cpp:25-34), the
-    JAX package's fields that the ported paths serve, plus ``device``."""
+    """CLI-equivalent configuration (defaults from test.cpp:25-34): the JAX
+    package's fields and defaults that the ported paths serve, plus
+    ``device``."""
 
     mesh_size: tuple[int, int] = (100, 100)  # -m X,Y
     degree_velocity: int = 3  # generated-mesh path default (test.cpp:26)
     degree_pressure: int = 2
     Re: float = 100.0  # -r
-    solver_type: int = 1  # -s (0 GMRES, 1 FGMRES)
+    solver_type: int = 1  # -s (0 GMRES, 1 FGMRES, 2 BiCGStab)
     tolerance: float = 1e-6  # -t (absolute)
-    preconditioner_type: int = 1  # -p (1 blockTriangular)
+    preconditioner_type: int = 0  # -p (0 blockDiagonal, 1 blockTriangular, 2 aSIMPLE)
     time_span: float = 1.0  # -T span,step (unsteady only)
     time_step: float = 0.01
     # Outer GMRES/FGMRES restart basis (deal.II default 30; a deeper basis
     # is a perf knob -- same fields, fewer outer iterations).
     krylov_basis: int = 30
     read_mesh_from_file: bool = False  # -M: not ported
+    mesh_file_name: str = ""  # -M FILE: not ported
     geometry: str = "channel"  # "cavity": not ported
     multigrid: bool = True  # geometric-MG velocity smoother (AMG analog)
+    # working precision of the solve: None = float64; torch.float32 (or
+    # "float32") is the CLI's --f32
+    dtype: Any = None
     # where every tensor of the solve lives: the card unless the caller
     # asks for "cpu" (without a card, "cuda" fails in setup: no silent
     # fallback)
     device: Any = "cuda"
     verbose: bool = True
     write_output: bool = False  # VTU snapshots: not ported
+    # directory of the lift/drag coefficient files (write_lift_drag_to_file)
+    output_dir: str = "."
+    profile_dir: str = ""  # the CLI captures a torch.profiler trace here
+    fused: bool = False  # the fused time loop: not ported
     # Stationary continuation: skip the reference's repeat Stokes-regime
     # tangent solves, whose state-independent rhs makes the strict-< line
     # search reject every update (see the JAX package's SolverOptions).
@@ -57,14 +75,15 @@ class SolverOptions:
     consistent_continuity: bool = False
 
     def check(self) -> None:
-        """Raise on options outside the ported slice."""
-        if self.read_mesh_from_file:
+        """Raise on options outside the ported slice: a field whose feature
+        is not ported raises only when set away from its default."""
+        if self.read_mesh_from_file or self.mesh_file_name:
             raise NotImplementedError(
                 "-M (simplex mesh backend) is not ported yet (ROADMAP.md A.D7)"
             )
         if self.geometry == "cavity":
             raise NotImplementedError(
-                "the cavity geometry is not ported yet (ROADMAP.md A.D6)"
+                "the cavity geometry is not ported yet (ROADMAP.md A.D6b)"
             )
         if self.geometry != "channel":
             raise ValueError(f"unknown geometry {self.geometry!r}")
@@ -72,23 +91,18 @@ class SolverOptions:
             raise NotImplementedError(
                 "domain decomposition is not ported yet (ROADMAP.md A.D9, dist/)"
             )
-        if not self.multigrid:
-            raise NotImplementedError(
-                "multigrid=False (point Jacobi on the velocity block) is not "
-                "ported yet (ROADMAP.md A.D3)"
-            )
         if self.write_output:
-            raise NotImplementedError("VTU output is not ported yet (ROADMAP.md A.D6)")
-        if self.solver_type == 2:
-            raise NotImplementedError("BiCGStab is not ported yet (ROADMAP.md A.D2)")
-        if self.solver_type not in (0, 1):
-            raise ValueError(f"invalid solver_type {self.solver_type!r}")
-        if self.preconditioner_type in (0, 2):
+            raise NotImplementedError("VTU output is not ported yet (ROADMAP.md A.D6b)")
+        if self.fused:
             raise NotImplementedError(
-                "blockDiagonal and aSIMPLE are not ported yet (ROADMAP.md A.D1)"
+                "the fused time loop is not ported yet (ROADMAP.md A.D5b)"
             )
-        if self.preconditioner_type != 1:
+        if self.solver_type not in (0, 1, 2):
+            raise ValueError(f"invalid solver_type {self.solver_type!r}")
+        if self.preconditioner_type not in (0, 1, 2):
             raise ValueError(f"invalid preconditioner_type {self.preconditioner_type!r}")
+        if torch_dtype(self.dtype) not in (None, torch.float32, torch.float64):
+            raise ValueError(f"unsupported dtype {self.dtype!r}")
         (self.precond_config or PrecondConfig()).check()
 
 
@@ -106,9 +120,11 @@ class NSSolverBase:
     KRYLOV_MAXITER: int = 0  # SolverControl maxit
     # Krylov iterations per solver call: a whole number of restart cycles,
     # so chunking is mathematically one long restarted solve -- except for
-    # the GMRES-IR cross-chunk stall test, which looks at chunk ends.  The
-    # length is fixed (basis * (KRYLOV_CHUNK_MAX // basis)); the JAX
-    # package's parity runs set NSTPU_KRYLOV_CHUNK to the same value.
+    # the GMRES-IR cross-chunk stall test, which looks at chunk ends, and
+    # for BiCGStab, whose every chunk restarts (the shadow residual resets
+    # at each chunk boundary, as in the JAX package).  The length is fixed
+    # (basis * (KRYLOV_CHUNK_MAX // basis)); the JAX package's parity runs
+    # set NSTPU_KRYLOV_CHUNK to the same value.
     KRYLOV_CHUNK_MAX: int = 960
 
     def __init__(self, options: SolverOptions | None = None, **kwargs):
@@ -119,7 +135,7 @@ class NSSolverBase:
         options.check()
         self.options = options
         self.device = torch.device(options.device)
-        self.dtype = torch.float64
+        self.dtype = torch_dtype(options.dtype) or torch.float64
         self.Re = options.Re
         self.nu: float = 0.01 if self.VARIANT == "unsteady" else 0.001
         self.history: list[dict] = []
@@ -141,7 +157,9 @@ class NSSolverBase:
         t0 = _time.perf_counter()
         self.geo = make_channel_geometry(*o.mesh_size)
         self.space = make_fe_space(self.geo, o.degree_velocity, o.degree_pressure)
-        self.disc = attach_mg(make_disc(self.space, self.dtype, self.device))
+        self.disc = make_disc(self.space, self.dtype, self.device)
+        if o.multigrid:
+            self.disc = attach_mg(self.disc)
         self.log(f"  Number of elements = {self.geo.n_active_cells}")
         self.log("-----------------------------------------------")
         self.log("Initializing the finite element space")
@@ -300,9 +318,10 @@ class NSSolverBase:
         self.compute_drag_coeff()
         self.log(f"Drag coefficient: {self.drag_coeff}")
 
-    def write_lift_drag_to_file(self, directory: str):
+    def write_lift_drag_to_file(self, directory: str | None = None):
         """Append the coefficients to per-Re files in ``directory``
-        (NSSolver.cpp:976-1018)."""
+        (default ``options.output_dir``; NSSolver.cpp:976-1018)."""
+        directory = directory or self.options.output_dir
         re = self.get_reynolds()
         for name, value in (
             ("drag_coefficient", self.drag_coeff),
@@ -313,7 +332,7 @@ class NSSolverBase:
 
     def output(self, time_step: int | None = None):
         """VTU output (NSSolver.cpp:761-797): a no-op, since
-        ``SolverOptions.check`` rejects ``write_output`` (ROADMAP.md A.D6)."""
+        ``SolverOptions.check`` rejects ``write_output`` (ROADMAP.md A.D6b)."""
 
     def fields(self) -> tuple[np.ndarray, np.ndarray]:
         """Host copies of (velocity [2, NVy, NVx], pressure [NPy, NPx])."""

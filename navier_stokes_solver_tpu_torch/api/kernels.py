@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from navier_stokes_solver_tpu_torch.krylov import fgmres, gmres
+from navier_stokes_solver_tpu_torch.krylov import bicgstab, fgmres, gmres
 from navier_stokes_solver_tpu_torch.ops import Blocks, matfree, norm
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
 from navier_stokes_solver_tpu_torch.precond import (
@@ -20,6 +20,8 @@ from navier_stokes_solver_tpu_torch.precond import (
 )
 
 __all__ = ["assemble_kernel", "solve_kernel", "update_solution", "lift_drag_kernel"]
+
+_SOLVERS = {0: gmres, 1: fgmres, 2: bicgstab}
 
 
 def assemble_kernel(
@@ -62,12 +64,9 @@ def solve_kernel(
     side effect: constrained entries of the persistent ``delta_owned`` are
     set to the boundary values, interior entries warm-start from the
     previous solve.  ``project_x0=False`` skips that projection -- used by
-    continuation chunks of one logical solve.
+    continuation chunks of one logical solve.  BiCGStab (``solver_type``
+    2) takes no restart basis and no GMRES-IR cycles.
     """
-    if solver_type not in (0, 1):
-        raise NotImplementedError(
-            "solver_type 2 (BiCGStab) is not ported yet (ROADMAP.md A.D2)"
-        )
     linq = None if stokes else matfree.eval_state(disc, st)
     dF = matfree.diag_F(disc, nu, inv_dt, linq, stokes=stokes)
     ctx = LinearContext(
@@ -87,9 +86,12 @@ def solve_kernel(
             u=torch.where(disc.u_active, x0u, 0.0),
             p=torch.where(disc.p_active, delta_prev.p, 0.0),
         )
-    lo = make_krylov_lo(prec_type, ctx, variant=variant, cfg=precond_cfg)
-    solver = gmres if solver_type == 0 else fgmres
-    return solver(A, rhs, x0, tol=tol, maxiter=maxiter, M=M, basis=basis, lo=lo)
+    kw = {}
+    if solver_type != 2:
+        kw = dict(basis=basis, lo=make_krylov_lo(
+            prec_type, ctx, variant=variant, cfg=precond_cfg
+        ))
+    return _SOLVERS[solver_type](A, rhs, x0, tol=tol, maxiter=maxiter, M=M, **kw)
 
 
 def update_solution(evaluation_point: Blocks, delta: Blocks, alpha: float) -> Blocks:

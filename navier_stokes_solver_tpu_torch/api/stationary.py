@@ -157,3 +157,55 @@ class NSSolverStationary(NSSolverBase):
                     computing_stokes = False
             current_Re += 20.0
         self.log("===============================================")
+
+    # ------------------------------------------------------------------
+    def solve_direct(self, u_max: float | None = None):
+        """Solve at *exactly* nu = 1/Re, skipping the continuation ramps
+        (the JAX package's extension beyond the reference; the CLI's
+        ``--direct``): a Stokes initialization at the full inlet amplitude
+        (or ``u_max``), then Newton with the strict-< backtracking line
+        search at the requested Reynolds number."""
+        self.log("===============================================")
+        self.nu = 1.0 / self.Re
+        self.inlet_velocity.u = self.inlet_velocity.U_m if u_max is None else u_max
+        self.log(f"Direct solve at Re = {self.Re} (nu = {self.nu})")
+
+        # Stokes initialization: lift the full Dirichlet data once, solve
+        # the linear Stokes tangent system (one Newton step is exact)
+        residual_norm = self.assemble_system(True, lifting=True)
+        self.log(f"Stokes init - ||r|| = {residual_norm:.6e}")
+        if residual_norm > self.NEWTON_TOL:
+            self.solve_system(True, lifting=False)
+            self.solution = kernels.update_solution(self.solution, self.delta, 1.0)
+
+        n_iter = 0
+        prev_residual = None
+        while n_iter < self.NEWTON_MAX_ITERS:
+            residual_norm = self.assemble_system(False, lifting=False)
+            self.log(
+                f"Newton iteration {n_iter}/{self.NEWTON_MAX_ITERS}"
+                f" - ||r|| = {residual_norm:.6e}"
+            )
+            if residual_norm <= self.NEWTON_TOL:
+                self.log(" < tolerance")
+                break
+            prev_residual = residual_norm + 1 if prev_residual is None else prev_residual
+            krylov_iter = self.solve_system(False, lifting=False)
+            self.history.append(
+                dict(phase="ns", nu=self.nu, n_iter=n_iter, residual=residual_norm,
+                     krylov_iters=krylov_iter)
+            )
+            if krylov_iter == 0:
+                break
+            evaluation_point = self.solution
+            alpha = 1.0
+            while alpha > 1e-12:
+                self.solution = kernels.update_solution(evaluation_point, self.delta, alpha)
+                residual_norm = self.assemble_system(False, lifting=False)
+                if residual_norm < prev_residual:
+                    break
+                alpha *= 0.1
+            prev_residual = residual_norm
+            n_iter += 1
+        self.output()
+        self.log("===============================================")

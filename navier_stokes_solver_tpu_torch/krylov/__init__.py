@@ -1,10 +1,11 @@
-"""Krylov solvers (GMRES / FGMRES with GMRES-IR cycles, CG) over tensors and
+"""Krylov solvers (GMRES / FGMRES with GMRES-IR cycles, BiCGStab, CG) over tensors and
 (u, p) block vectors, with the deal.II ``SolverControl`` semantics the
 reference relies on (NSSolver.cpp:601-672)."""
 
 from navier_stokes_solver_tpu_torch.krylov.solvers import (
     LowCycle,
     SolveInfo,
+    bicgstab,
     cg,
     fgmres,
     gmres,
@@ -12,4 +13,4 @@ from navier_stokes_solver_tpu_torch.krylov.solvers import (
     tvdot,
 )
 
-__all__ = ["gmres", "fgmres", "cg", "tvdot", "tnorm", "SolveInfo", "LowCycle"]
+__all__ = ["gmres", "fgmres", "bicgstab", "cg", "tvdot", "tnorm", "SolveInfo", "LowCycle"]

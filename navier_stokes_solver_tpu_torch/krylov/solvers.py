@@ -13,8 +13,9 @@ Semantics mirror the deal.II solvers the reference dispatches to
 The JAX package runs each solve as one ``lax.while_loop`` program; here the
 loops are Python loops.  The vector work (matvecs, preconditioners, CGS2
 orthogonalization) stays on the tensors' device, and each iteration reads
-back to the host exactly once: the new Hessenberg column (GMRES) or the
-residual norm and curvature (CG).  The (basis+1) x basis Hessenberg
+back to the host exactly once: the new Hessenberg column (GMRES), the
+residual norm and curvature (CG), or the residual norm and the three
+breakdown denominators (BiCGStab).  The (basis+1) x basis Hessenberg
 system, its Givens rotations and the final triangular solve are tiny and
 run on the host in NumPy, in the cycle's working precision.
 
@@ -30,7 +31,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["SolveInfo", "LowCycle", "gmres", "fgmres", "cg", "tvdot", "tnorm"]
+__all__ = ["SolveInfo", "LowCycle", "gmres", "fgmres", "bicgstab", "cg", "tvdot", "tnorm"]
 
 Op = Callable
 
@@ -324,6 +325,66 @@ def fgmres(matvec, b, x0, *, tol, maxiter=1000, M=None, basis=30, lo=None):
         matvec, b, x0, tol=tol, maxiter=maxiter, M=M, basis=basis,
         flexible=True, lo=lo,
     )
+
+
+# ---------------------------------------------------------------------------
+# BiCGStab
+# ---------------------------------------------------------------------------
+
+
+def bicgstab(matvec, b, x0, *, tol, maxiter=1000, M=None):
+    """Preconditioned BiCGStab (deal.II ``SolverBicgstab``), in the JAX
+    package's order of operations.
+
+    Breakdown guard: a vanishing ``rho = <rbar, r>``, ``<rbar, v>`` or
+    ``<t, t>`` (below ``_EPS_BREAKDOWN``) or a non-finite residual freezes
+    the iterate at the previous step and stops with ``failed`` -- deal.II's
+    SolverControl would throw ``NoConvergence`` there.  The failed step
+    still counts as an iteration, as in the JAX loop.
+    """
+    M = M or _identity
+    tol = float(tol)
+    scale = lambda a, x: _map(lambda xi: a * xi, x)
+    r = _map(torch.sub, b, matvec(x0))
+    rbar = r
+    res = float(tnorm(r))
+    x = x0
+    p = v = _map(torch.zeros_like, r)
+    one = torch.ones((), dtype=_leaves(r)[0].dtype, device=_leaves(r)[0].device)
+    rho = alpha = omega = one
+    it, done, failed = 0, res <= tol, False
+    while not done and not failed and it < maxiter:
+        rho_new = tvdot(rbar, r)
+        beta = (rho_new / rho) * (alpha / omega)
+        p_new = _map(lambda pi, vi, ri: beta * (pi - omega * vi) + ri, p, v, r)
+        y = M(p_new)
+        v_new = matvec(y)
+        denom = tvdot(rbar, v_new)
+        alpha_new = rho_new / denom
+        s = _map(lambda ri, vi: ri - alpha_new * vi, r, v_new)
+        z = M(s)
+        t = matvec(z)
+        tt = tvdot(t, t)
+        omega_new = tvdot(t, s) / tt
+        x_new = _map(torch.add, x, _map(torch.add, scale(alpha_new, y), scale(omega_new, z)))
+        r_new = _map(lambda si, ti: si - omega_new * ti, s, t)
+        # the one host readback of this iteration
+        rho_h, denom_h, tt_h, res_new = torch.stack(
+            [rho_new, denom, tt, tnorm(r_new)]
+        ).tolist()
+        it += 1
+        failed = (
+            abs(rho_h) < _EPS_BREAKDOWN
+            or abs(denom_h) < _EPS_BREAKDOWN
+            or abs(tt_h) < _EPS_BREAKDOWN
+            or not math.isfinite(res_new)
+        )
+        if failed:
+            break
+        x, r, p, v, res = x_new, r_new, p_new, v_new, res_new
+        rho, alpha, omega = rho_new, alpha_new, omega_new
+        done = res <= tol
+    return x, SolveInfo(it, done, res, failed)
 
 
 # ---------------------------------------------------------------------------

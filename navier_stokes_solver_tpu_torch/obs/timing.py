@@ -1,14 +1,17 @@
-"""Phase timers."""
+"""Phase timers and the profiler trace helper."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 
 import torch
 
-__all__ = ["PhaseTimer"]
+__all__ = ["PhaseTimer", "trace_to", "TRACE_FILE"]
+
+TRACE_FILE = "trace.json"
 
 
 class PhaseTimer:
@@ -42,3 +45,20 @@ class PhaseTimer:
             name: {"seconds": self.totals[name], "calls": self.counts[name]}
             for name in sorted(self.totals)
         }
+
+
+@contextlib.contextmanager
+def trace_to(logdir: str):
+    """Capture a ``torch.profiler`` trace of the block -- host (CPU)
+    activity, and the card's kernels and copies when CUDA is available --
+    and write it as a Chrome trace (viewable in Perfetto) to
+    ``logdir/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))

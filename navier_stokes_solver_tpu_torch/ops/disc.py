@@ -255,7 +255,7 @@ def disc_from_numpy(
             "decomposed discs are not ported yet (ROADMAP.md A.D9, dist/)"
         )
     if leaves.get("forcing_rhs") is not None:
-        raise NotImplementedError("body forcing is not ported (ROADMAP.md A.D6)")
+        raise NotImplementedError("body forcing is not ported (ROADMAP.md A.D6b)")
     if dtype is None:
         dtype = torch.float64 if np.asarray(leaves["cell_mask"]).dtype == np.float64 else torch.float32
     fl = lambda a: torch.as_tensor(np.array(a), device=device).to(dtype)

@@ -1,7 +1,9 @@
-"""Block preconditioners for the Navier-Stokes saddle system: the stationary
-and unsteady blockTriangular sweeps with a geometric-multigrid velocity leg
-(the reference's AMG equivalence layer) and a mass, Cahouet-Chabard or PCD
-pressure leg, run in f32 inside the f64 outer Krylov."""
+"""Block preconditioners for the Navier-Stokes saddle system: blockDiagonal,
+blockTriangular and aSIMPLE in their stationary and unsteady variants,
+with a geometric-multigrid velocity leg (GMRES, Chebyshev-Jacobi or
+cell-block Schwarz smoothing; the reference's AMG equivalence layer) and a
+mass, Cahouet-Chabard or PCD pressure leg, run in f32 inside the f64 outer
+Krylov."""
 
 from navier_stokes_solver_tpu_torch.precond.blocks import (
     LinearContext,

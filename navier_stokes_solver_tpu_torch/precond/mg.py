@@ -3,9 +3,11 @@
 The port of the JAX package's ``precond/mg.py`` on the slice's path: the
 rediscretization hierarchy (the channel regenerated at semi-coarsened cell
 counts, dense 1-D tensor-factor transfers over the velocity and pressure
-lattices), the velocity V-cycle with the fixed-step Jacobi-preconditioned
-GMRES smoother, and the pressure-Laplacian V-cycle of the Cahouet-Chabard
-Schur leg with Chebyshev-Jacobi smoothing.  The reference
+lattices), the velocity V-cycle with its three smoothers (the fixed-step
+Jacobi-preconditioned GMRES smoother, Chebyshev-Jacobi, and Chebyshev
+over the cell-block additive Schwarz sweep of ``precond/schwarz.py``),
+and the pressure-Laplacian V-cycle of the Cahouet-Chabard Schur leg with
+Chebyshev-Jacobi smoothing.  The reference
 preconditions its stationary velocity-block inner solves with Trilinos
 ``PreconditionAMG`` (NSSolverStationary.hpp:225-231).  Dirichlet rows and
 non-existent lattice lanes are identity/diagonal rows; transfers zero them
@@ -30,14 +32,19 @@ from navier_stokes_solver_tpu_torch.ops.matfree import (
     diag_F,
     diag_Lp,
 )
+from navier_stokes_solver_tpu_torch.precond.schwarz import make_schwarz_smoother
 
 __all__ = [
+    "SMOOTHERS",
     "attach_mg",
     "make_mg_vcycle",
     "make_lp_vcycle",
     "mg_level_shapes",
     "as_dtype_scalar",
 ]
+
+
+SMOOTHERS = ("gmres", "jacobi", "schwarz")
 
 
 def as_dtype_scalar(v: float, dtype: torch.dtype) -> float:
@@ -178,24 +185,35 @@ def _lmax_start(shape, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.randn(shape, generator=g, dtype=torch.float64).to(device=device, dtype=dtype)
 
 
-def _estimate_lmax(A, dinv, shape, dtype: torch.dtype, device):
-    """Eight power iterations for the spectral radius of ``diag^-1 A``
-    (matrix-free, no host synchronization); a 0-dim tensor."""
+def _as_prec(prec):
+    """A preconditioner callable from an inverse diagonal (Jacobi) or a
+    callable ``r -> d`` (the Schwarz sweep)."""
+    return prec if callable(prec) else (lambda r: prec * r)
+
+
+def _estimate_lmax(A, prec, shape, dtype: torch.dtype, device, iters: int = 8):
+    """``iters`` power iterations for the spectral radius of ``P A``
+    (``prec`` an inverse diagonal or a callable; matrix-free, no host
+    synchronization); a 0-dim tensor."""
+    P = _as_prec(prec)
     v = _lmax_start(shape, dtype, device)
     lam = torch.ones((), dtype=dtype, device=device)
-    for _ in range(8):
-        w = dinv * A(v)
+    for _ in range(iters):
+        w = P(A(v))
         lam = torch.sqrt(tvdot(w, w))
         v = w / torch.clamp_min(lam, 1e-30)
     return lam
 
 
-def _chebyshev_coeffs(lmax, degree: int):
-    """The scalars of ``degree`` >= 1 Chebyshev steps on [lmax/4, 1.1 lmax]
-    -- the classic smoothing window: only the high end of the spectrum must
-    be damped (``lmax`` a 0-dim tensor).  Built once per V-cycle: eager
-    PyTorch would launch each of these 0-dim operations in every step."""
-    lmin = lmax / 4.0
+def _chebyshev_coeffs(lmax, degree: int, lmin_ratio: float = 4.0):
+    """The scalars of ``degree`` >= 1 Chebyshev steps on
+    [lmax/lmin_ratio, 1.1 lmax] (``lmax`` a 0-dim tensor).  ``lmin_ratio``
+    4 is the classic smoothing window -- only the high end of the spectrum
+    must be damped; larger ratios approach a solver over the whole
+    spectrum of a well-conditioned operator (the pressure mass).  Built
+    once per V-cycle or solver: eager PyTorch would launch each of these
+    0-dim operations in every step."""
+    lmin = lmax / lmin_ratio
     lmax = 1.1 * lmax
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
@@ -209,18 +227,20 @@ def _chebyshev_coeffs(lmax, degree: int):
     return theta, steps
 
 
-def _chebyshev(A, dinv, coeffs, b, x=None):
-    """Chebyshev-accelerated Jacobi smoothing (``dinv`` the inverse
-    diagonal, ``coeffs`` from ``_chebyshev_coeffs``); ``x=None`` starts
-    from zero without applying ``A`` to it.  The JAX package's loop also
-    forms one more residual and direction, which its result never reads."""
+def _chebyshev(A, prec, coeffs, b, x=None):
+    """Chebyshev-accelerated preconditioned smoothing (``prec`` an inverse
+    diagonal -- Jacobi -- or a callable, e.g. the Schwarz sweep; ``coeffs``
+    from ``_chebyshev_coeffs``); ``x=None`` starts from zero without
+    applying ``A`` to it.  The JAX package's loop also forms one more
+    residual and direction, which its result never reads."""
+    P = _as_prec(prec)
     r = b if x is None else b - A(x)
     theta, steps = coeffs
-    d = dinv * r / theta
+    d = P(r) / theta
     x = d if x is None else x + d
     for a, c in steps:
         r = b - A(x)
-        d = a * d + c * (dinv * r)
+        d = a * d + c * P(r)
         x = x + d
     return x
 
@@ -246,13 +266,17 @@ def make_mg_vcycle(
     linearized convection on every level.  ``dtype``: compute precision of
     the cycle (disc, state, and the scalars ``nu`` and ``inv_dt`` are all
     cast to it); the result is cast back to the input dtype.
+
+    ``smoother``: "gmres" (fixed-step Jacobi-preconditioned minimal-residual
+    smoothing, robust on the nonsymmetric Newton-regime block), "jacobi"
+    (Chebyshev-Jacobi; for the SPD Stokes block -- it diverges on
+    convection-dominated operators) or "schwarz" (Chebyshev over the
+    cell-block additive Schwarz sweep, which also preconditions the coarse
+    solve).  The Chebyshev smoothers take one spectral estimate, on the
+    finest level, and reuse it below.
     """
-    if smoother != "gmres":
-        raise NotImplementedError(
-            f"mg_smoother={smoother!r} is not ported yet; only 'gmres' is "
-            "(ROADMAP.md A.D3: the Chebyshev-Jacobi and Schwarz velocity "
-            "smoothers)"
-        )
+    if smoother not in SMOOTHERS:
+        raise ValueError(f"unknown mg_smoother {smoother!r}; one of {SMOOTHERS}")
     out_dtype = disc.dtype
     if dtype is not None and dtype != disc.dtype:
         disc = disc.to(dtype)
@@ -262,7 +286,8 @@ def make_mg_vcycle(
         inv_dt = as_dtype_scalar(inv_dt, dtype)
 
     # ---- walk the chain, building per-level operators ----
-    levels = []  # (disc, A, dinv, edge)
+    levels = []  # (disc, A, prec, edge)
+    cheb = None  # Chebyshev scalars of the finest level's estimate
     d = disc
     u = state_u
     while True:
@@ -276,7 +301,14 @@ def make_mg_vcycle(
         def A(x, _d=d, _l=linq, _dg=diag):
             return apply_F(_d, nu, inv_dt, _l, x, stokes=stokes, bc_diag=_dg)
 
-        levels.append((d, A, 1.0 / diag, d.mg))
+        if smoother == "schwarz":
+            prec = make_schwarz_smoother(d, nu, inv_dt, linq, diag, stokes=stokes)
+        else:
+            prec = 1.0 / diag
+        if cheb is None and smoother != "gmres":
+            lmax = _estimate_lmax(A, prec, (2,) + d.NV, d.dtype, d.device)
+            cheb = _chebyshev_coeffs(lmax, smooth_degree)
+        levels.append((d, A, prec, d.mg))
         if d.mg is None:
             break
         edge = d.mg
@@ -292,8 +324,19 @@ def make_mg_vcycle(
     def prolong(edge: MGEdge, x):
         return torch.einsum("Yy,cyx,Xx->cYX", edge.Pvy, x, edge.Pvx)
 
+    if smoother == "gmres":
+
+        def smooth(A, prec, b, x):
+            x = torch.zeros_like(b) if x is None else x
+            return _gmres_smooth(A, prec, b, x, smooth_degree)
+
+    else:
+
+        def smooth(A, prec, b, x):
+            return _chebyshev(A, prec, cheb, b, x)
+
     def vcycle(li: int, b):
-        d, A, dinv, edge = levels[li]
+        d, A, prec, edge = levels[li]
         if li == len(levels) - 1:
             # CG is only valid on the SPD Stokes block; the NS-regime F is
             # nonsymmetric (convection), so the coarse solve is GMRES there
@@ -304,15 +347,15 @@ def make_mg_vcycle(
                 torch.zeros_like(b),
                 tol=coarse_rtol * torch.sqrt(tvdot(b, b)),
                 maxiter=coarse_iters,
-                M=lambda r: dinv * r,
+                M=_as_prec(prec),
             )
             return x
-        x = _gmres_smooth(A, dinv, b, torch.zeros_like(b), smooth_degree)
+        x = smooth(A, prec, b, None)
         r = _zero_constrained(d, b - A(x))
         bc = _zero_constrained(edge.coarse, restrict(edge, r))
         xc = vcycle(li + 1, bc)
         x = x + _zero_constrained(d, prolong(edge, xc))
-        return _gmres_smooth(A, dinv, b, x, smooth_degree)
+        return smooth(A, prec, b, x)
 
     def M(b):
         return vcycle(0, b.to(disc.dtype)).to(out_dtype)

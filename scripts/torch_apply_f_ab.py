@@ -78,11 +78,10 @@ def measure(root: str, tag: str, save: str | None):
             "apply_F_kernel_ms": sum(e.time_range.elapsed_us() for e in events) / 1e3,
         }
     s = NSSolverStationary(cs.bench_options(device)).setup()
+    s.nu = 1.0 / 90.0
     for stokes in (False, True):
         regime = "stokes" if stokes else "newton"
-        out[regime]["per_outer"] = cs.outer_profile(
-            s.disc, 1.0 / 90.0, s.solution, s.solution_old.u, s.options, stokes
-        )
+        out[regime]["per_outer"] = cs.outer_profile(s, stokes)
     print(json.dumps(out))
     if save:
         np.savez(save, **arrays)
@@ -102,7 +101,7 @@ def kernel_only(root: str, tag: str):
 
     lattice = hasattr(cell_kernel, "cell_apply_F_lattice")
     out = {"tag": tag, "card": cs.nvidia_smi(), "entry": "lattice" if lattice else "gathered"}
-    for mesh in cs.mg_shapes(device):
+    for mesh in cs.mg_shapes(device, cs.BENCH_MESH):
         disc, linq, x, _ = cs.kernel_case(device, mesh, (3, 2), torch.float32)
         x_in = x if lattice else _gather_v(disc, x)
         fn = cell_kernel.cell_apply_F_lattice if lattice else cell_kernel.cell_apply_F

@@ -135,14 +135,11 @@ def test_krylov_lo_cycle_operators(discs, stokes):
 
 
 UNPORTED = [  # (kind, cfg, variant, ROADMAP item the message must name)
-    (0, {}, "stationary", "A.D1"),
-    (2, {}, "stationary", "A.D1"),
-    (0, {}, "unsteady", "A.D1"),
-    (2, {}, "unsteady", "A.D1"),
-    (1, {"inner_mode": "fixed"}, "stationary", "A.D3"),
-    (1, {"mg_smoother": "jacobi"}, "stationary", "A.D3"),
+    (0, {"direct_lu": True}, "stationary", "A.D7"),
     (1, {"direct_lu": True}, "stationary", "A.D7"),
+    (2, {"direct_lu": True}, "unsteady", "A.D7"),
     (1, {"krylov_cycle_dtype": "mixed"}, "stationary", "A.14"),
+    (2, {"krylov_cycle_dtype": "mixed"}, "unsteady", "A.14"),
 ]
 
 

@@ -175,10 +175,8 @@ def test_lift_drag_files_match_the_jax_package(tmp_path):
 
 
 OUTSIDE_THE_PATH = [  # (option, ROADMAP item the message must name)
-    (dict(preconditioner_type=0), "A.D1"),
-    (dict(preconditioner_type=2), "A.D1"),
-    (dict(solver_type=2), "A.D2"),
-    (dict(write_output=True), "A.D6"),
+    (dict(write_output=True), "A.D6b"),
+    (dict(fused=True), "A.D5b"),
 ]
 
 
