@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases (each raises on failure; none catches another's):
+Phases (each raises on failure; none catches another's).  They run in this
+order, except that phase 8 runs after phase 10, and phases 8, 12, 13 and 14
+run together after it: the CPU sides of the card-vs-CPU phases (8, 12, 14)
+run in three spawned worker processes meanwhile, which are joined before
+phase 15 -- so the timed paths before and after them have the host to
+themselves:
 
   1. device   -- require CUDA; print the card (nvidia-smi name and power
                 limit) and the torch / CUDA versions;
@@ -48,8 +53,8 @@ Phases (each raises on failure; none catches another's):
                 lift per step within rtol 1e-7, fields within 1e-6 of their
                 largest magnitude;
   9. unsteady-main -- the north-star unsteady configuration at full width:
-                300x100 Q3/Q2 (657,740 DoFs), Re 100, dt 0.01, two of the 800
-                steps of T = 8, tol 1e-9, FGMRES basis 30, blockTriangular
+                300x100 Q3/Q2 (657,740 DoFs), Re 100, dt 0.01,
+                ``UNSTEADY_STEPS`` (one) of the 800 steps of T = 8, tol 1e-9, FGMRES basis 30, blockTriangular
                 with the Cahouet-Chabard leg (one Lp V-cycle), f32
                 preconditioner, ``NSSolver.solve(direct=True)``: setup and
                 per-step walls, Newton iterations, outer counts, final
@@ -76,20 +81,55 @@ Phases (each raises on failure; none catches another's):
                 magnitude); tangent solves capped inside the agreeing
                 stretch for the chaotic ones (GMRES, BiCGStab, aSIMPLE,
                 unsteady blockDiagonal: counts equal, residual and iterate
-                within 1e-10); whole aSIMPLE, BiCGStab and unsteady
-                blockDiagonal solves on the card alone (finite, converged);
+                within 1e-10); whole aSIMPLE and BiCGStab solves on the
+                card alone (finite, converged);
  13. profile  -- a small CLI solve with ``--profile-dir``: the Chrome trace
                 must name both kernels;
- 14. report   -- one JSON line of per-kernel results (launches from phase
+ 14. simplex-check -- the ``-M`` P2/P1 simplex backend on the card against
+                the CPU, all-f64, at 24x10: whole solves (stationary Re 20
+                blockTriangular with the p-multigrid and the dense Schur
+                legs; the same with ``--direct-lu``): Krylov counts within 1
+                per solve, drag and lift rtol 1e-7, fields 1e-6 of their
+                magnitude; the two-step unsteady run (per-step Re ramp, the
+                reference's continuity sign, iterative Schur legs): drag and
+                lift per step rtol 1e-7, fields 1e-6, counts printed (its
+                400-600-outer Newton-regime solves are chaotic: a rounding
+                difference moves their stopping iteration); capped tangent
+                solves (``SIMPLEX_TANGENT``) carry the count gate there.
+                The CPU side runs in one worker process beside the card's;
+ 15. config3  -- BASELINE config 3, the reference's unsteady script
+                (run_sim_unsteady.sh:21) through ``cli.unsteady.run``: -M
+                60x40 (21,997 DoFs), T = 0.03 in steps of 0.01 (its own
+                three steps, not cut), tol 1e-9, FGMRES + blockTriangular,
+                Re 1, with the Jacobian-consistent continuity sign; f32
+                preconditioner, p-MG, dense Schur legs: setup, per-step
+                walls, Newton iterations, outers per step; every step's
+                Newton residual <= 1e-9, finite coefficients; then phase 7's
+                profile in its Newton regime with the costliest device ops;
+ 16. config3-lu -- the same with ``--direct-lu``, T = 0.12 (12 of the 800
+                steps of the record): matrix-build, factor and solve
+                seconds per tangent solve; the last step's drag within rtol
+                1e-5 of the 800-step record (``PERF_NORTHSTAR.json``);
+ 17. simplex-file -- a curved-cylinder mesh of >= 100k DoFs from the port's
+                ``triangulate_channel_curved``, written as MSH2 to a
+                temporary directory and read back through ``-M FILE``: one
+                step (T = 0.01), Re 1, Cahouet-Chabard, consistent sign:
+                id-10 curved edges present, Newton residual <= 1e-9, finite
+                positive drag;
+ 18. report   -- one JSON line of per-kernel results (launches from phase
                 11 and times at its finest level, 100x33 Stokes, with every
-                path's launches and every shape's times beside them), the
-                nvidia-smi line,
+                path's launches -- 0 on the simplex paths, which run no
+                hand-written kernel -- and every shape's times beside
+                them), the nvidia-smi line,
                 then the final ``{"ok": true, "device": ...}`` line.
 
 If the script outgrows its time budget, depth is cut, in this order: the
-stationary bench solve to one run (``SOLVES``, taken), then the unsteady
-run to one step (``UNSTEADY_STEPS``); never a mesh of the main paths and
-never the unsteady check's second step.  The cut is printed.
+stationary bench solve to one run (``SOLVES``), then the unsteady run to
+one step (``UNSTEADY_STEPS``), then config3-lu to 12 steps
+(``CONFIG3_LU_STEPS``), then phase 12's unsteady card-only entry -- all
+four taken: the whole script took 1,040.8 s of its 1,200 s on a slow card
+without the last three -- never a mesh, config3's three steps, the simplex
+check or the unsteady check's second step.  The cuts are printed.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -123,7 +163,7 @@ SOLVES = 1  # stationary runs (cut from 2 to 1 to make room for phases 12-14)
 UNSTEADY_MESH = (300, 100)
 UNSTEADY_DOFS = 657_740
 UNSTEADY_DT = 0.01
-UNSTEADY_STEPS = 2  # of the 800 steps of T = 8 (the second depth cut: 1)
+UNSTEADY_STEPS = 1  # of the 800 steps of T = 8 (the second depth cut, from 2)
 CHECK_MESH = (32, 12)  # unsteady-check: card against CPU
 CHECK_RE, CHECK_STEPS = 20.0, 2
 FIELD_GATE = 1e-6  # BASELINE.md, relative to each field's largest magnitude
@@ -145,21 +185,20 @@ CONFIG1_DRAG_RTOL = 1e-6
 # trajectories agree, and run whole on the card alone; the others are
 # compared as whole solves.
 MATRIX_MESH = (24, 10)
-MATRIX = [  # whole solves, card vs CPU: (entry, unsteady, SolverOptions fields, PrecondConfig fields)
-    ("stationary -p 0 Re 30", False, dict(preconditioner_type=0, Re=30.0), {}),
-    ("stationary Re 20 mg_smoother=jacobi", False, {}, dict(mg_smoother="jacobi")),
-    ("stationary Re 20 mg_smoother=schwarz", False, {}, dict(mg_smoother="schwarz")),
-    ("stationary Re 20 inner_mode=fixed", False, {}, dict(inner_mode="fixed")),
-    ("stationary Re 20 multigrid=False", False, dict(multigrid=False), {}),
+MATRIX = [  # stationary whole solves, card vs CPU: (entry, SolverOptions fields, PrecondConfig fields)
+    ("stationary -p 0 Re 30", dict(preconditioner_type=0, Re=30.0), {}),
+    ("stationary Re 20 mg_smoother=jacobi", {}, dict(mg_smoother="jacobi")),
+    ("stationary Re 20 mg_smoother=schwarz", {}, dict(mg_smoother="schwarz")),
+    ("stationary Re 20 inner_mode=fixed", {}, dict(inner_mode="fixed")),
+    ("stationary Re 20 multigrid=False", dict(multigrid=False), {}),
 ]
-MATRIX_CARD_ONLY = [  # whole solves on the card: they must converge
-    ("stationary -p 2 Re 20 --stokes-schur mass", False, dict(preconditioner_type=2),
+MATRIX_CARD_ONLY = [  # stationary whole solves on the card: they must converge
+    ("stationary -p 2 Re 20 --stokes-schur mass", dict(preconditioner_type=2),
      dict(asimple_stokes_schur="mass")),
     # BiCGStab needs a near-linear preconditioner: with the reference's
     # inexact inner solves it stagnates until rho = <rbar, r> vanishes
-    ("stationary -s 2 -p 1 Re 20 (inner rel 1e-6)", False, dict(solver_type=2, preconditioner_type=1),
+    ("stationary -s 2 -p 1 Re 20 (inner rel 1e-6)", dict(solver_type=2, preconditioner_type=1),
      dict(tri_rel_u_stokes=1e-6, tri_rel_p_stokes=1e-6)),
-    ("unsteady -p 0 Re 20", True, dict(preconditioner_type=0), {}),
 ]
 MATRIX_TANGENT = {  # capped tangent solves, card vs CPU: (solver, prec, variant, stokes, maxiter, cfg)
     "fgmres aSIMPLE stationary stokes (mass)": (1, 2, "stationary", True, 30, dict(asimple_stokes_schur="mass")),
@@ -171,8 +210,41 @@ MATRIX_TANGENT = {  # capped tangent solves, card vs CPU: (solver, prec, variant
     "bicgstab aSIMPLE unsteady newton": (2, 2, "unsteady", False, 5, {}),
 }
 MATRIX_FIELD_GATE = 1e-6  # relative to each field's largest magnitude
-# the unsteady entry: one direct step (Re 11, the ramp's last level)
-MATRIX_UNSTEADY = dict(tolerance=1e-6, krylov_basis=100)
+# the -M simplex path (the reference's mesh path, BASELINE config 3)
+SIMPLEX_CHECK_MESH = (24, 10)
+SIMPLEX_CHECK = [  # whole runs, card vs CPU, all-f64: (entry, unsteady, SolverOptions fields, PrecondConfig fields)
+    ("-M stationary -p 1 Re 20 (p-MG, dense Schur legs)", False, {}, {}),
+    ("-M stationary -p 1 Re 20 --direct-lu", False, {}, dict(direct_lu=True)),
+    ("-M unsteady -p 1 Re 20, two steps, per-step ramp (iterative Schur legs)", True,
+     dict(dense_schur=False), {}),
+]
+# capped tangent solves, card vs CPU, all-f64, unsteady Newton regime from a
+# seeded state: (dense Schur legs, iterations, iterate gate).  The dense legs
+# multiply in f32 (the inverses are stored in f32, as in the JAX package), and
+# cuBLAS and the CPU's BLAS round differently: f32 rounding from the first
+# iteration on (port against JAX package on the CPU, 16x8: 3.3e-6 after 5
+# iterations, 1.3e-6 after 30), so their gate is 1e-5.
+CPU_SIDE_THREADS = 2  # torch threads of each CPU-side worker process
+SIMPLEX_TANGENT = {
+    "fgmres blockTriangular unsteady newton, p-MG + dense Schur legs": (True, 30, 1e-5),
+    "fgmres blockTriangular unsteady newton, p-MG + iterative Schur legs": (False, 30, 1e-10),
+}
+# BASELINE config 3: the reference's unsteady script, run_sim_unsteady.sh:21
+# (-M -T 0.03,0.01 -t 1e-9 -m 60,40 -s 1 -r 1.0 -p 1), plus the
+# Jacobian-consistent continuity sign (with the reference's the Newton loop
+# stalls above 1e-9)
+CONFIG3_ARGV = ["-M", "-T", "0.03,0.01", "-t", "1e-9", "-m", "60,40", "-s", "1", "-r", "1.0", "-p", "1",
+                "--consistent-continuity", "--quiet"]
+CONFIG3_DOFS = 21_997
+CONFIG3_METRIC = "config3_60x40_re1.0_fused_consistent"  # PERF_NORTHSTAR.json, its 800-step row
+CONFIG3_LU_STEPS = 12  # of the record's 800 (the third depth cut, from 20)
+CONFIG3_LU_DRAG_RTOL = 1e-5
+# simplex-file: a curved-cylinder mesh of the class of the reference's
+# new_mesh.msh (117,273 DoFs); 264x49 background points give 116,995 DoFs
+SIMPLEX_FILE_GRID = (264, 49)
+SIMPLEX_FILE_MIN_DOFS = 100_000
+SIMPLEX_FILE_ARGV = ["-T", "0.01,0.01", "-t", "1e-9", "-s", "1", "-r", "1.0", "-p", "1", "--schur", "cahouet",
+                     "--consistent-continuity", "--quiet"]
 SOURCES = {
     "cell_apply_F": "navier_stokes_solver_tpu_torch/csrc/cell_apply_f.cu",
     "scatter_v_bc": "navier_stokes_solver_tpu_torch/csrc/scatter_v.cu",
@@ -626,9 +698,12 @@ def outer_profile(s, stokes, iters=OUTER_WINDOW):
         )
 
     ours = {"cell_apply_F": "cell_apply_f_kernel", "scatter_v_bc": "scatter_v_kernel"}
-    win = {}
+    win, by_name = {}, {}
     for n in (1, 1 + iters):
         ev, (_, info), wall = profile_call(lambda: solve(n))
+        by_name[n] = {}
+        for e in ev:
+            by_name[n][e.name] = by_name[n].get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         win[n] = {
             "iters": info.iters,
             "kernels": len(ev),
@@ -645,6 +720,8 @@ def outer_profile(s, stokes, iters=OUTER_WINDOW):
     per["busy"] = per["device_ms"] / per["wall_ms"]
     per["ours_share"] = per["ours_ms"] / per["device_ms"]
     per["outer_iterations"] = d
+    ms = {k: (v - by_name[1].get(k, 0.0)) / d for k, v in by_name[1 + iters].items()}
+    per["top_device_ops_ms"] = [(k[:100], v) for k, v in sorted(ms.items(), key=lambda kv: -kv[1])[:10]]
     return per
 
 
@@ -684,29 +761,71 @@ def unsteady_solver(device, mesh, Re, steps, cfg, *, consistent=False):
     )).setup()
 
 
+def _history(s):
+    return s["history"] if isinstance(s, dict) else s.history
+
+
 def solves_of(s):
-    return [h for h in s.history if h["phase"] != "step"]
+    return [h for h in _history(s) if h["phase"] != "step"]
 
 
 def steps_of(s):
-    return [h for h in s.history if h["phase"] == "step"]
+    return [h for h in _history(s) if h["phase"] == "step"]
 
 
-def phase_unsteady_check(device):
-    """The per-step ramp path on the card against the same run on the CPU."""
+def step_report(s, tag):
+    """Per-step records of an unsteady run (wall, Newton iterations, outers
+    per tangent solve, final Newton residual, coefficients), printed."""
+    steps = []
+    for h in steps_of(s):
+        sv = [x for x in solves_of(s) if x["time"] == h["time"]]
+        rec = {
+            "step": h["step"], "wall_s": h["seconds"], "newton_iterations": len(sv),
+            "outer_per_solve": [(x["phase"], x["krylov_iters"]) for x in sv],
+            "outer": sum(x["krylov_iters"] for x in sv),
+            "newton_residual": h["newton_residual"],
+            "drag_coeff": h["drag_coeff"], "lift_coeff": h["lift_coeff"],
+        }
+        steps.append(rec)
+        print(f"[{tag}] step {json.dumps(rec)}")
+    return steps
+
+
+def check_steps(s, steps, tag):
+    """Fields finite and of the disc's shape; every step's Newton residual
+    <= the Newton tolerance; finite coefficients."""
     import numpy as np
-    import torch
 
+    u, p = s.fields()
+    if u.shape != (2,) + s.disc.NV or p.shape != s.disc.NP or not (np.isfinite(u).all() and np.isfinite(p).all()):
+        raise RuntimeError(f"{tag}: fields are not finite or have the wrong shape")
+    for rec in steps:
+        if not rec["newton_residual"] <= s.NEWTON_TOL:
+            raise RuntimeError(f"{tag}: step {rec['step']} ended with Newton residual {rec['newton_residual']!r} > {s.NEWTON_TOL}")
+        if not (np.isfinite(rec["drag_coeff"]) and np.isfinite(rec["lift_coeff"])):
+            raise RuntimeError(f"{tag}: step {rec['step']}: non-finite coefficient")
+
+
+def unsteady_check_run(device):
+    """The unsteady check's run on one device, as plain data: history, host
+    fields, wall."""
     from navier_stokes_solver_tpu_torch.precond import PrecondConfig
 
     cfg = PrecondConfig(schur_mode="cahouet", vmult_dtype=None, mg_dtype=None)
-    runs = {}
-    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
-        s = unsteady_solver(dev, CHECK_MESH, CHECK_RE, CHECK_STEPS, cfg)
-        t0 = time.perf_counter()
-        s.solve()
-        runs[where] = s
-        print(f"[unsteady-check] {CHECK_MESH[0]}x{CHECK_MESH[1]} Re {CHECK_RE} on the {where}: solve wall {time.perf_counter() - t0!r} s, per solve {[(h['phase'], h['nu'], h['n_iter'], h['krylov_iters']) for h in solves_of(s)]}")
+    s = unsteady_solver(device, CHECK_MESH, CHECK_RE, CHECK_STEPS, cfg)
+    t0 = time.perf_counter()
+    s.solve()
+    return {"history": s.history, "fields": s.fields(), "wall_s": time.perf_counter() - t0}
+
+
+def phase_unsteady_check(device, cpu_side):
+    """The per-step ramp path on the card against the same run on the CPU
+    (``cpu_side``: the future of ``cpu_job("unsteady-check")``)."""
+    import numpy as np
+
+    runs = {"card": unsteady_check_run(device), "cpu": cpu_side.result()}
+    for where, s in runs.items():
+        print(f"[unsteady-check] {CHECK_MESH[0]}x{CHECK_MESH[1]} Re {CHECK_RE} on the {where}: solve wall {s['wall_s']!r} s, per solve {[(h['phase'], h['nu'], h['n_iter'], h['krylov_iters']) for h in solves_of(s)]}")
     g, c = runs["card"], runs["cpu"]
     key = lambda h: (h["phase"], h["nu"], h["n_iter"])
     if [key(h) for h in solves_of(g)] != [key(h) for h in solves_of(c)]:
@@ -722,7 +841,7 @@ def phase_unsteady_check(device):
             print(f"[unsteady-check] step {hg['step']} {k}: card {hg[k]!r}, CPU {hc[k]!r}, |diff| {err:.3e}")
             if not err <= max(1e-7 * abs(hc[k]), floor if k == "lift_coeff" else 0.0):
                 raise RuntimeError(f"unsteady-check: {k} at step {hg['step']} outside rtol 1e-7")
-    for name, a, b in zip(("velocity", "pressure"), g.fields(), c.fields()):
+    for name, a, b in zip(("velocity", "pressure"), g["fields"], c["fields"]):
         err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
         print(f"[unsteady-check] {name}: max|card - CPU| {err:.3e} (max|CPU| {scale:.3e})")
         if not err <= FIELD_GATE * scale:
@@ -730,8 +849,6 @@ def phase_unsteady_check(device):
 
 
 def phase_unsteady_main(device):
-    import numpy as np
-
     from navier_stokes_solver_tpu_torch.precond import PrecondConfig
 
     cfg = PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1)
@@ -744,31 +861,13 @@ def phase_unsteady_main(device):
     s.solve(direct=True)
     wall = time.perf_counter() - t0
     counts = read_counts()
-    u, p = s.fields()
     print(f"[unsteady-main] {UNSTEADY_MESH[0]}x{UNSTEADY_MESH[1]} Q3/Q2 Re 100, n_dofs {s.n_dofs}, setup {s.setup_seconds:.3f} s, solve wall {wall!r} s over {len(steps_of(s))} steps")
-    steps = []
-    for h in steps_of(s):
-        sv = [x for x in solves_of(s) if x["time"] == h["time"]]
-        rec = {
-            "step": h["step"], "wall_s": h["seconds"], "newton_iterations": len(sv),
-            "outer_per_solve": [(x["phase"], x["krylov_iters"]) for x in sv],
-            "outer": sum(x["krylov_iters"] for x in sv),
-            "newton_residual": h["newton_residual"],
-            "drag_coeff": h["drag_coeff"], "lift_coeff": h["lift_coeff"],
-        }
-        steps.append(rec)
-        print(f"[unsteady-main] step {json.dumps(rec)}")
+    steps = step_report(s, "unsteady-main")
     print(f"[unsteady-main] phases {json.dumps(s.timer.summary())}")
     print(f"[unsteady-main] launches {json.dumps(counts)}")
     if s.n_dofs != UNSTEADY_DOFS:
         raise RuntimeError(f"DoF count {s.n_dofs} != {UNSTEADY_DOFS}")
-    if u.shape != (2,) + s.disc.NV or p.shape != s.disc.NP or not (np.isfinite(u).all() and np.isfinite(p).all()):
-        raise RuntimeError("unsteady fields are not finite or have the wrong shape")
-    for rec in steps:
-        if not rec["newton_residual"] <= s.NEWTON_TOL:
-            raise RuntimeError(f"step {rec['step']} ended with Newton residual {rec['newton_residual']!r} > {s.NEWTON_TOL}")
-        if not (np.isfinite(rec["drag_coeff"]) and np.isfinite(rec["lift_coeff"])):
-            raise RuntimeError(f"step {rec['step']}: non-finite coefficient")
+    check_steps(s, steps, "unsteady-main")
     for name, c in counts.items():
         if c["launches"] <= 0:
             raise RuntimeError(f"the unsteady path never launched {name}")
@@ -780,15 +879,15 @@ def phase_unsteady_main(device):
 # ---------------------------------------------------------------------------
 
 
-def northstar(metric):
+def northstar(metric, n_steps=None):
     """The ``PERF_NORTHSTAR.json`` record (one JSON object per line) of
-    ``metric``."""
+    ``metric`` (the one of ``n_steps`` time steps, when given)."""
     with open(os.path.join(ROOT, "PERF_NORTHSTAR.json")) as f:
         for line in f:
             rec = json.loads(line) if line.strip() else {}
-            if rec.get("metric") == metric:
+            if rec.get("metric") == metric and n_steps in (None, rec["extra"].get("n_steps")):
                 return rec
-    raise RuntimeError(f"PERF_NORTHSTAR.json has no {metric!r} record")
+    raise RuntimeError(f"PERF_NORTHSTAR.json has no {metric!r} record of {n_steps} steps")
 
 
 def phase_config1(device):
@@ -826,49 +925,46 @@ def phase_config1(device):
     return s, {"wall_s": s.solve_seconds, "setup_s": s.setup_seconds, "outer": total, "per_solve": per_solve, "drag": s.drag_coeff, "counts": counts}
 
 
-def matrix_run(device, unsteady, fields, cfg):
-    from navier_stokes_solver_tpu_torch.api import NSSolver, NSSolverStationary, SolverOptions
+def matrix_run(device, fields, cfg):
+    """One matrix entry's whole stationary solve on one device, as plain
+    data: history, host fields, (drag, lift), wall."""
+    from navier_stokes_solver_tpu_torch.api import NSSolverStationary, SolverOptions
     from navier_stokes_solver_tpu_torch.precond import PrecondConfig
 
+    t0 = time.perf_counter()
     o = dict(
         mesh_size=MATRIX_MESH, degree_velocity=3, degree_pressure=2, Re=20.0, solver_type=1,
-        verbose=False, device=device,
+        verbose=False, device=device, tolerance=1e-8, skip_futile_stokes=True,
         precond_config=PrecondConfig(vmult_dtype=None, mg_dtype=None, **cfg),
     )
-    if unsteady:
-        o.update(MATRIX_UNSTEADY, time_span=UNSTEADY_DT, time_step=UNSTEADY_DT)
-        s = NSSolver(SolverOptions(**{**o, **fields})).setup()
-        s.solve(direct=True)
-        return s, [(h["drag_coeff"], h["lift_coeff"]) for h in steps_of(s)]
-    s = NSSolverStationary(SolverOptions(**{**o, "tolerance": 1e-8, "skip_futile_stokes": True, **fields})).setup()
+    s = NSSolverStationary(SolverOptions(**{**o, **fields})).setup()
     s.solve_newton()
     s.compute_lift_drag()
     s.compute_drag_coeff()
     s.compute_lift_coeff()
-    return s, [(s.drag_coeff, s.lift_coeff)]
+    forces = [(s.drag_coeff, s.lift_coeff)]
+    return {"history": s.history, "fields": s.fields(), "forces": forces, "wall_s": time.perf_counter() - t0}
 
 
-def phase_matrix(device):
-    """``MATRIX`` on the card and on the CPU (the plain versions), all-f64:
-    Newton histories equal, Krylov counts per solve within 1, drag and lift
-    within rtol 1e-7 (the lift floored at 1e-7 of the drag), fields within
-    1e-6 of their magnitude.  Then ``MATRIX_TANGENT`` (card vs CPU) and
+def phase_matrix(device, cpu_side):
+    """``MATRIX`` on the card and on the CPU (the plain versions; ``cpu_side``:
+    the future of ``cpu_job("matrix")``), all-f64: Newton histories equal,
+    Krylov counts per solve within 1, drag and lift within rtol 1e-7 (the
+    lift floored at 1e-7 of the drag), fields within 1e-6 of their
+    magnitude.  Then ``MATRIX_TANGENT`` (card vs CPU) and
     ``MATRIX_CARD_ONLY``."""
     import numpy as np
-    import torch
 
     key = lambda h: (h["phase"], h["nu"], h["n_iter"])
     t_all = time.perf_counter()
-    for name, unsteady, fields, cfg in MATRIX:
-        runs, walls = {}, {}
-        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
-            t0 = time.perf_counter()
-            runs[where] = matrix_run(dev, unsteady, fields, cfg)
-            walls[where] = time.perf_counter() - t0
-        (g, gf), (c, cf) = runs["card"], runs["cpu"]
+    card = [matrix_run(device, fields, cfg) for _, fields, cfg in MATRIX]
+    card_tangent = matrix_tangent_run(device)
+    cpu, cpu_tangent = cpu_side.result()
+    for (name, _, _), g, c in zip(MATRIX, card, cpu):
+        gf, cf = g["forces"], c["forces"]
         sg, sc = solves_of(g), solves_of(c)
         counts = [(hg.get("krylov_iters", 0), hc.get("krylov_iters", 0)) for hg, hc in zip(sg, sc)]
-        print(f"[matrix] {name}: walls card {walls['card']:.2f} s, CPU {walls['cpu']:.2f} s; Krylov counts (card, CPU) per solve {counts}")
+        print(f"[matrix] {name}: walls card {g['wall_s']:.2f} s, CPU {c['wall_s']:.2f} s; Krylov counts (card, CPU) per solve {counts}")
         if [key(h) for h in sg] != [key(h) for h in sc]:
             raise RuntimeError(f"matrix {name}: the card's Newton history differs from the CPU's")
         if any(abs(a - b) > 1 for a, b in counts):
@@ -877,28 +973,33 @@ def phase_matrix(device):
             print(f"[matrix] {name}: drag card {dg!r} CPU {dc!r} (|diff| {abs(dg - dc):.3e}); lift card {lg!r} CPU {lc!r} (|diff| {abs(lg - lc):.3e})")
             if not (abs(dg - dc) <= 1e-7 * abs(dc) and abs(lg - lc) <= 1e-7 * max(abs(lc), abs(dc))):
                 raise RuntimeError(f"matrix {name}: drag/lift outside rtol 1e-7")
-        for field, a, b in zip(("velocity", "pressure"), g.fields(), c.fields()):
+        for field, a, b in zip(("velocity", "pressure"), g["fields"], c["fields"]):
             err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
             print(f"[matrix] {name}: {field} max|card - CPU| {err:.3e} (max|CPU| {scale:.3e})")
             if not err <= MATRIX_FIELD_GATE * scale:
                 raise RuntimeError(f"matrix {name}: {field} differs by {err} > {MATRIX_FIELD_GATE} x {scale}")
-    matrix_tangent(device)
-    for name, unsteady, fields, cfg in MATRIX_CARD_ONLY:
-        t0 = time.perf_counter()
-        s, forces = matrix_run(device, unsteady, fields, cfg)
-        u, p = s.fields()
-        counts = [h.get("krylov_iters", 0) for h in solves_of(s)]
-        print(f"[matrix] {name} (card only): wall {time.perf_counter() - t0:.2f} s, Krylov counts per solve {counts}, drag and lift {forces}")
+    for (name, (_, _, _, _, n, _)), (gi, gf, gr, gx), (ci, cf, cr, cx) in zip(MATRIX_TANGENT.items(), card_tangent, cpu_tangent):
+        err = max(float(np.abs(a - b).max()) / float(np.abs(b).max()) for a, b in zip(gx, cx))
+        print(f"[matrix] tangent {name}: iterations card {gi} CPU {ci}, residual card {gr!r} CPU {cr!r}, iterate rel diff {err:.3e}")
+        if (gi, gf) != (ci, cf) or gi != n:
+            raise RuntimeError(f"matrix tangent {name}: iterations/flags differ: card {(gi, gf)}, CPU {(ci, cf)}")
+        if not (abs(gr - cr) <= 1e-10 * abs(cr) and err <= 1e-10):
+            raise RuntimeError(f"matrix tangent {name}: card and CPU differ beyond 1e-10")
+    for name, fields, cfg in MATRIX_CARD_ONLY:
+        run = matrix_run(device, fields, cfg)
+        (u, p), forces = run["fields"], run["forces"]
+        counts = [h.get("krylov_iters", 0) for h in solves_of(run)]
+        print(f"[matrix] {name} (card only): wall {run['wall_s']:.2f} s, Krylov counts per solve {counts}, drag and lift {forces}")
         if not (np.isfinite(u).all() and np.isfinite(p).all() and np.isfinite(forces).all()) or sum(counts) <= 0:
             raise RuntimeError(f"matrix {name}: no finite converged solve on the card")
     print(f"[matrix] {len(MATRIX)} whole-solve entries, {len(MATRIX_TANGENT)} tangent solves and {len(MATRIX_CARD_ONLY)} card-only solves at {MATRIX_MESH[0]}x{MATRIX_MESH[1]} in {time.perf_counter() - t_all:.1f} s")
 
 
-def matrix_tangent(device):
+def matrix_tangent_run(device):
     """Each ``MATRIX_TANGENT`` solve (``api.kernels.solve_kernel``: method,
-    preconditioner and initial-guess projection) from one seeded state, on
-    the card and on the CPU, capped at ``maxiter`` (tol 1e-14 stops none):
-    equal counts and flags, residual norms and iterates within 1e-10."""
+    preconditioner and initial-guess projection) from one seeded state on
+    one device, capped at ``maxiter`` (tol 1e-14 stops none): a list of
+    (iterations, failed, residual norm, host iterate)."""
     import numpy as np
     import torch
 
@@ -907,34 +1008,23 @@ def matrix_tangent(device):
     from navier_stokes_solver_tpu_torch.ops import Blocks, make_disc
     from navier_stokes_solver_tpu_torch.precond import PrecondConfig, attach_mg
 
-    space = make_fe_space(make_channel_geometry(*MATRIX_MESH), 3, 2)
-    cpu = attach_mg(make_disc(space, torch.float64, "cpu"))
-    discs = {"card": attach_mg(make_disc(space, torch.float64, device)), "cpu": cpu}
+    d = attach_mg(make_disc(make_fe_space(make_channel_geometry(*MATRIX_MESH), 3, 2), torch.float64, device))
     rng = np.random.default_rng(1)
-    u = 0.3 * rng.standard_normal((2,) + cpu.NV) * cpu.u_active.numpy()
-    p = rng.standard_normal(cpu.NP) * cpu.p_active.numpy()
-    states = {k: Blocks(torch.as_tensor(u, device=d.device), torch.as_tensor(p, device=d.device)) for k, d in discs.items()}
+    u = 0.3 * rng.standard_normal((2,) + d.NV) * d.u_active.cpu().numpy()
+    p = rng.standard_normal(d.NP) * d.p_active.cpu().numpy()
+    st = Blocks(torch.as_tensor(u, device=device), torch.as_tensor(p, device=device))
     nu = 1.0 / 20.0
-    for name, (solver, prec, variant, stokes, n, cfg) in MATRIX_TANGENT.items():
+    out = []
+    for solver, prec, variant, stokes, n, cfg in MATRIX_TANGENT.values():
         inv_dt = 1.0 / UNSTEADY_DT if variant == "unsteady" else 0.0
-        out = {}
-        for where in ("card", "cpu"):
-            d, st = discs[where], states[where]
-            rhs, _ = kernels.assemble_kernel(d, nu, inv_dt, st, st.u, 0.0, stokes=stokes)
-            out[where] = kernels.solve_kernel(
-                d, nu, inv_dt, st, rhs, st, 0.0, 1e-14, stokes=stokes, solver_type=solver,
-                prec_type=prec, variant=variant, maxiter=n,
-                precond_cfg=PrecondConfig(vmult_dtype=None, mg_dtype=None, **cfg),
-            )
-        (xg, ig), (xc, ic) = out["card"], out["cpu"]
-        err = max(
-            float((a.cpu() - b).abs().max()) / float(b.abs().max()) for a, b in zip(xg, xc)
+        rhs, _ = kernels.assemble_kernel(d, nu, inv_dt, st, st.u, 0.0, stokes=stokes)
+        x, info = kernels.solve_kernel(
+            d, nu, inv_dt, st, rhs, st, 0.0, 1e-14, stokes=stokes, solver_type=solver,
+            prec_type=prec, variant=variant, maxiter=n,
+            precond_cfg=PrecondConfig(vmult_dtype=None, mg_dtype=None, **cfg),
         )
-        print(f"[matrix] tangent {name}: iterations card {ig.iters} CPU {ic.iters}, residual card {ig.resnorm!r} CPU {ic.resnorm!r}, iterate rel diff {err:.3e}")
-        if (ig.iters, ig.failed) != (ic.iters, ic.failed) or ig.iters != n:
-            raise RuntimeError(f"matrix tangent {name}: iterations/flags differ: {ig} vs {ic}")
-        if not (abs(ig.resnorm - ic.resnorm) <= 1e-10 * abs(ic.resnorm) and err <= 1e-10):
-            raise RuntimeError(f"matrix tangent {name}: card and CPU differ beyond 1e-10")
+        out.append((info.iters, info.failed, info.resnorm, [a.cpu().numpy() for a in x]))
+    return out
 
 
 def phase_profile(device):
@@ -958,6 +1048,246 @@ def phase_profile(device):
     print(f"[profile] --profile-dir trace {size} bytes, {len(names)} distinct event names; kernels found {json.dumps(found)}")
     if not all(found.values()):
         raise RuntimeError(f"the --profile-dir trace does not name both kernels: {found}")
+
+
+# ---------------------------------------------------------------------------
+# 14. simplex-check, 15. config3, 16. config3-lu, 17. simplex-file
+# ---------------------------------------------------------------------------
+
+
+def simplex_run(device, unsteady, fields, cfg):
+    """One ``-M`` run at ``SIMPLEX_CHECK_MESH``, Re 20, FGMRES +
+    blockTriangular, all-f64 -- the stationary continuation (tol 1e-8) or
+    two unsteady steps with the per-step ramp (tol 1e-9) -- as plain data:
+    DoFs, history, host fields, (drag, lift) per solve or step."""
+    from navier_stokes_solver_tpu_torch.api import NSSolver, NSSolverStationary, SolverOptions
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    o = dict(
+        mesh_size=SIMPLEX_CHECK_MESH, read_mesh_from_file=True, Re=20.0, solver_type=1,
+        preconditioner_type=1, verbose=False, device=device,
+        precond_config=PrecondConfig(vmult_dtype=None, mg_dtype=None, **cfg),
+    )
+    if unsteady:
+        s = NSSolver(SolverOptions(**o, tolerance=1e-9, time_span=2 * UNSTEADY_DT, time_step=UNSTEADY_DT,
+                                   **fields)).setup()
+        s.solve()
+        forces = [(h["drag_coeff"], h["lift_coeff"]) for h in steps_of(s)]
+    else:
+        s = NSSolverStationary(SolverOptions(**o, tolerance=1e-8, **fields)).setup()
+        s.solve_newton()
+        s.compute_lift_drag()
+        s.compute_drag_coeff()
+        s.compute_lift_coeff()
+        forces = [(s.drag_coeff, s.lift_coeff)]
+    return {"n_dofs": s.n_dofs, "history": s.history, "fields": s.fields(), "forces": forces}
+
+
+def simplex_tangent_run(device, dense, n):
+    """One ``SIMPLEX_TANGENT`` solve (``api.kernels.solve_kernel``) from a
+    seeded state on the -M disc, capped at ``n`` iterations (tol 1e-14
+    stops none): (iterations, failed, residual norm, host iterate)."""
+    import numpy as np
+    import torch
+
+    from navier_stokes_solver_tpu_torch.api import kernels
+    from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry
+    from navier_stokes_solver_tpu_torch.ops import Blocks
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+    from navier_stokes_solver_tpu_torch.unstructured import make_simplex_disc, triangulate_channel
+    from navier_stokes_solver_tpu_torch.unstructured.dense import attach_dense_schur
+
+    mesh = triangulate_channel(make_channel_geometry(*SIMPLEX_CHECK_MESH))
+    nu, inv_dt = 1.0 / 20.0, 1.0 / UNSTEADY_DT
+    d = make_simplex_disc(*mesh, dtype=torch.float64, device=device).replace(p_mg=True)
+    if dense:
+        d = attach_dense_schur(d)
+    rng = np.random.default_rng(1)
+    put = lambda a: torch.as_tensor(a, device=device)
+    st = Blocks(put(0.3 * rng.standard_normal((2, d.n_nodes_v))), put(rng.standard_normal(d.n_nodes_p)))
+    rhs, _ = kernels.assemble_kernel(d, nu, inv_dt, st, st.u, 0.0, stokes=False)
+    x, info = kernels.solve_kernel(
+        d, nu, inv_dt, st, rhs, st, 0.0, 1e-14, stokes=False, solver_type=1, prec_type=1,
+        variant="unsteady", maxiter=n, precond_cfg=PrecondConfig(vmult_dtype=None, mg_dtype=None),
+    )
+    return info.iters, info.failed, info.resnorm, [a.cpu().numpy() for a in x]
+
+
+def cpu_job(name):
+    """The CPU side of one card-vs-CPU phase -- "unsteady-check", "matrix"
+    or "simplex-check" -- as plain data, for a worker process."""
+    import torch
+
+    torch.set_num_threads(CPU_SIDE_THREADS)
+    cpu = torch.device("cpu")
+    if name == "unsteady-check":
+        return unsteady_check_run(cpu)
+    if name == "matrix":
+        return [matrix_run(cpu, f, c) for _, f, c in MATRIX], matrix_tangent_run(cpu)
+    if name == "simplex-check":
+        return (
+            [simplex_run(cpu, unsteady, fields, cfg) for _, unsteady, fields, cfg in SIMPLEX_CHECK],
+            [simplex_tangent_run(cpu, dense, n) for dense, n, _ in SIMPLEX_TANGENT.values()],
+        )
+    raise ValueError(f"no CPU side named {name!r}")
+
+
+def cpu_pool(workers):
+    """Spawned worker processes for ``cpu_job`` (joined when the ``with``
+    block that holds the pool ends)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+
+
+def phase_simplex_check(device, cpu_side=None):
+    """``SIMPLEX_CHECK`` and ``SIMPLEX_TANGENT`` on the card against the same
+    on the CPU (``cpu_side``: the future of ``cpu_job("simplex-check")``; by
+    default one worker process started here)."""
+    import numpy as np
+
+    if cpu_side is None:
+        with cpu_pool(1) as pool:
+            return phase_simplex_check(device, pool.submit(cpu_job, "simplex-check"))
+    key = lambda h: (h["phase"], h["nu"], h["n_iter"])
+    t_all = time.perf_counter()
+    card, walls = [], []
+    for _, unsteady, fields, cfg in SIMPLEX_CHECK:
+        t0 = time.perf_counter()
+        card.append(simplex_run(device, unsteady, fields, cfg))
+        walls.append(time.perf_counter() - t0)
+    card_tangent = [simplex_tangent_run(device, dense, n) for dense, n, _ in SIMPLEX_TANGENT.values()]
+    t_card = time.perf_counter() - t_all
+    cpu, cpu_tangent = cpu_side.result()
+    print(f"[simplex-check] card side {t_card:.1f} s; waited {time.perf_counter() - t_all - t_card:.1f} s more for the CPU side (worker process, {CPU_SIDE_THREADS} threads)")
+    for (name, unsteady, _, _), g, c, wall in zip(SIMPLEX_CHECK, card, cpu, walls):
+        sg, sc = solves_of(g), solves_of(c)
+        counts = [(hg["krylov_iters"], hc["krylov_iters"]) for hg, hc in zip(sg, sc)]
+        print(f"[simplex-check] {name}: {g['n_dofs']} DoFs; card wall {wall:.2f} s; Krylov counts (card, CPU) per solve {counts}")
+        if [key(h) for h in sg] != [key(h) for h in sc]:
+            raise RuntimeError(f"simplex-check {name}: the card's Newton history differs from the CPU's")
+        if not unsteady and any(abs(a - b) > 1 for a, b in counts):
+            raise RuntimeError(f"simplex-check {name}: Krylov counts {counts} differ by more than 1")
+        for (dg, lg), (dc, lc) in zip(g["forces"], c["forces"]):
+            print(f"[simplex-check] {name}: drag card {dg!r} CPU {dc!r} (|diff| {abs(dg - dc):.3e}); lift card {lg!r} CPU {lc!r} (|diff| {abs(lg - lc):.3e})")
+            if not (abs(dg - dc) <= 1e-7 * abs(dc) and abs(lg - lc) <= 1e-7 * max(abs(lc), abs(dc))):
+                raise RuntimeError(f"simplex-check {name}: drag/lift outside rtol 1e-7")
+        for field, a, b in zip(("velocity", "pressure"), g["fields"], c["fields"]):
+            err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+            print(f"[simplex-check] {name}: {field} max|card - CPU| {err:.3e} (max|CPU| {scale:.3e})")
+            if not err <= FIELD_GATE * scale:
+                raise RuntimeError(f"simplex-check {name}: {field} differs by {err} > {FIELD_GATE} x {scale}")
+    for (name, (_, n, gate)), (gi, gf, gr, gx), (ci, cf, cr, cx) in zip(SIMPLEX_TANGENT.items(), card_tangent, cpu_tangent):
+        err = max(float(np.abs(a - b).max()) / float(np.abs(b).max()) for a, b in zip(gx, cx))
+        print(f"[simplex-check] tangent {name}, capped at {n} iterations: iterations card {gi} CPU {ci}, residual card {gr!r} CPU {cr!r}, iterate rel diff {err:.3e} (gate {gate:g})")
+        if (gi, gf) != (ci, cf) or gi != n:
+            raise RuntimeError(f"simplex tangent {name}: iterations/flags differ: card {(gi, gf)}, CPU {(ci, cf)}")
+        if not (abs(gr - cr) <= gate * abs(cr) and err <= gate):
+            raise RuntimeError(f"simplex tangent {name}: card and CPU differ beyond {gate}")
+    print(f"[simplex-check] {len(SIMPLEX_CHECK)} whole runs and {len(SIMPLEX_TANGENT)} capped tangent solves at -M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]} in {time.perf_counter() - t_all:.1f} s")
+
+
+def unsteady_cli(device, argv, tag):
+    """One run of ``cli.unsteady.run`` on the card, kernel counts zeroed just
+    before and read just after; prints the setup, the walls and the steps."""
+    from navier_stokes_solver_tpu_torch.cli import unsteady as cli
+
+    argv = argv + ["--device", str(device)]
+    reset_counts()
+    s = cli.run(argv)
+    counts = read_counts()
+    print(f"[{tag}] cli.unsteady {' '.join(argv)}: n_dofs {s.n_dofs} ({s.disc.n_nodes_p} pressure nodes, {s.disc.n_tri} triangles), setup {s.setup_seconds:.3f} s, time loop {s.solve_seconds!r} s over {len(steps_of(s))} steps")
+    steps = step_report(s, tag)
+    print(f"[{tag}] phases {json.dumps(s.timer.summary())}")
+    print(f"[{tag}] launches of the hand-written kernels (this path runs none) {json.dumps(counts)}")
+    check_steps(s, steps, tag)
+    return s, {"wall_s": s.solve_seconds, "setup_s": s.setup_seconds, "steps": steps, "counts": counts}
+
+
+def phase_config3(device):
+    s, run = unsteady_cli(device, CONFIG3_ARGV, "config3")
+    if s.n_dofs != CONFIG3_DOFS:
+        raise RuntimeError(f"config3: DoF count {s.n_dofs} != {CONFIG3_DOFS}")
+    if len(run["steps"]) != 3:
+        raise RuntimeError(f"config3 ran {len(run['steps'])} steps, not 3")
+    return s, run
+
+
+def phase_config3_lu(device):
+    """config3 with ``--direct-lu`` over ``CONFIG3_LU_STEPS`` steps: the
+    matrix-build, factor and solve seconds of each tangent solve, and the
+    last step's drag against the 800-step record."""
+    import torch
+
+    from navier_stokes_solver_tpu_torch.precond import blocks
+
+    ref = northstar(CONFIG3_METRIC, n_steps=800)["extra"]
+    argv = list(CONFIG3_ARGV)
+    argv[argv.index("-T") + 1] = f"{CONFIG3_LU_STEPS * UNSTEADY_DT:g},{UNSTEADY_DT:g}"
+    blocks.DIRECT_LU_TIMES.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    s, run = unsteady_cli(device, argv + ["--direct-lu"], "config3-lu")
+    print(f"[config3-lu] peak device memory {torch.cuda.max_memory_allocated(device)} bytes (the f32 matrix and its factors: 2 x {4 * s.n_dofs ** 2} bytes)")
+    solves, lu = solves_of(s), list(blocks.DIRECT_LU_TIMES)
+    if len(lu) != len(solves):
+        raise RuntimeError(f"config3-lu: {len(lu)} factorizations for {len(solves)} tangent solves")
+    per = [
+        {"step": round(h["time"] / UNSTEADY_DT), "n": t["n"], "build_s": t["build_s"], "factor_s": t["factor_s"],
+         "solve_s": h["seconds"] - t["build_s"] - t["factor_s"], "outer": h["krylov_iters"]}
+        for h, t in zip(solves, lu)
+    ]
+    for rec in per:
+        print(f"[config3-lu] tangent solve {json.dumps(rec)}")
+    drag = run["steps"][-1]["drag_coeff"]
+    rel = abs(drag - ref["drag_coeff_last"]) / abs(ref["drag_coeff_last"])
+    print(f"[config3-lu] outers per step {[r['outer'] for r in run['steps']]}; last step drag {drag!r} (800-step record {ref['drag_coeff_last']!r}, rel diff {rel:.3e}, gate {CONFIG3_LU_DRAG_RTOL:g})")
+    if s.n_dofs != CONFIG3_DOFS:
+        raise RuntimeError(f"config3-lu: DoF count {s.n_dofs} != {CONFIG3_DOFS}")
+    if not rel <= CONFIG3_LU_DRAG_RTOL:
+        raise RuntimeError(f"config3-lu: drag {drag!r} not within rtol {CONFIG3_LU_DRAG_RTOL} of {ref['drag_coeff_last']!r}")
+    run["lu"] = per
+    return s, run
+
+
+def write_msh2(path, nodes, tri, edges, tags):
+    """A triangle mesh as gmsh MSH2: boundary lines with their physical ids,
+    then the triangles (the layout of ``scripts/generate_mesh.py --tri``)."""
+    lines = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$Nodes", str(len(nodes))]
+    lines += [f"{i + 1} {x:.16g} {y:.16g} 0" for i, (x, y) in enumerate(nodes)]
+    elements = [f"1 2 {t} {t} {a + 1} {b + 1}" for (a, b), t in zip(edges, tags)]
+    elements += [f"2 2 0 0 {a + 1} {b + 1} {c + 1}" for a, b, c in tri]
+    elements = [f"{i + 1} {e}" for i, e in enumerate(elements)]
+    lines += ["$EndNodes", "$Elements", str(len(elements)), *elements, "$EndElements"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def phase_simplex_file(device):
+    import tempfile
+
+    import numpy as np
+
+    from navier_stokes_solver_tpu_torch.unstructured import triangulate_channel_curved
+
+    t0 = time.perf_counter()
+    nodes, tri, edges, tags = triangulate_channel_curved(*SIMPLEX_FILE_GRID)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "curved.msh")
+        write_msh2(path, nodes, tri, edges, tags)
+        size = os.path.getsize(path)
+        print(f"[simplex-file] triangulate_channel_curved{SIMPLEX_FILE_GRID}: {len(nodes)} vertices, {len(tri)} triangles, {int((tags == 10).sum())} id-10 edges; MSH2 file {size} bytes in {time.perf_counter() - t0:.2f} s")
+        s, run = unsteady_cli(device, ["-M", path] + SIMPLEX_FILE_ARGV, "simplex-file")
+    n_cyl = int(s.disc.cyl_tri.numel())
+    drag = run["steps"][-1]["drag_coeff"]
+    print(f"[simplex-file] {s.n_dofs} DoFs, {n_cyl} curved id-10 edges in the disc, outers {[r['outer'] for r in run['steps']]}, drag {drag!r}")
+    if s.n_dofs < SIMPLEX_FILE_MIN_DOFS:
+        raise RuntimeError(f"simplex-file: {s.n_dofs} DoFs < {SIMPLEX_FILE_MIN_DOFS}")
+    if n_cyl <= 0:
+        raise RuntimeError("simplex-file: no id-10 cylinder edges")
+    if not (np.isfinite(drag) and drag > 0):
+        raise RuntimeError(f"simplex-file: drag {drag!r} is not finite and positive")
+    return s, run
 
 
 # ---------------------------------------------------------------------------
@@ -1004,9 +1334,11 @@ def main():
     import torch
 
     print(
-        f"[budget] depth: stationary bench solves {SOLVES} of 2, unsteady-check steps {CHECK_STEPS} (not cut), unsteady steps {UNSTEADY_STEPS} of 2 "
-        f"(the 800 steps of T = 8 cut to 2); config 1 not cut; matrix at {MATRIX_MESH[0]}x{MATRIX_MESH[1]}, "
-        f"unsteady entries one direct step at {json.dumps(MATRIX_UNSTEADY)}"
+        f"[budget] depth cuts taken: stationary bench solves {SOLVES} of 2; unsteady 300x100 steps {UNSTEADY_STEPS} of 2 "
+        f"(of the 800 of T = 8); config3-lu {CONFIG3_LU_STEPS} of 20 steps (of the record's 800); phase 12's unsteady "
+        f"card-only entry dropped. Not cut: unsteady-check steps {CHECK_STEPS}, config 1, matrix at "
+        f"{MATRIX_MESH[0]}x{MATRIX_MESH[1]}, simplex check at -M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]}, "
+        f"config3 its 3 steps, simplex-file one step"
     )
     phase_build()
     errs = phase_check(device)
@@ -1025,14 +1357,31 @@ def main():
     outer = phase_outer(s)
     print(f"[main] solve_newton walls {[r['wall_s'] for r in runs]} s; outer iterations {[r['outer'] for r in runs]}; kernels per outer iteration newton {outer['newton']['kernels']!r}, stokes {outer['stokes']['kernels']!r}")
     del s
-    phase_unsteady_check(device)
     su, unsteady = phase_unsteady_main(device)
     uouter = phase_outer(su, regimes=(False,), tag="unsteady-outer")
     print(f"[unsteady-main] per-step walls {[r['wall_s'] for r in unsteady['steps']]} s; outer iterations per step {[r['outer'] for r in unsteady['steps']]}; Newton regime per outer iteration: {uouter['newton']['kernels']!r} device kernels, {uouter['newton']['readbacks']!r} readbacks, busy {uouter['newton']['busy']:.4f}")
     del su
-    phase_matrix(device)
-    phase_profile(device)
-    counts_by_path = {"stationary": runs[0]["counts"], "unsteady": unsteady["counts"], "config1_blockdiag": config1["counts"]}
+    # the card-vs-CPU phases, after the timed paths before them and before
+    # those after them: their CPU sides run meanwhile in worker processes
+    t_checks = time.perf_counter()
+    with cpu_pool(3) as pool:
+        cpu = {name: pool.submit(cpu_job, name) for name in ("unsteady-check", "matrix", "simplex-check")}
+        phase_unsteady_check(device, cpu["unsteady-check"])
+        phase_matrix(device, cpu["matrix"])
+        phase_profile(device)
+        phase_simplex_check(device, cpu["simplex-check"])
+    print(f"[budget] card-vs-CPU phases (8, 12-14) {time.perf_counter() - t_checks:.1f} s")
+    s3, config3 = phase_config3(device)
+    c3outer = phase_outer(s3, regimes=(False,), tag="config3-outer")
+    print(f"[config3] setup {config3['setup_s']:.3f} s, per-step walls {[r['wall_s'] for r in config3['steps']]} s, Newton iterations per step {[r['newton_iterations'] for r in config3['steps']]}, outers per step {[r['outer'] for r in config3['steps']]}; Newton regime per outer iteration: {c3outer['newton']['kernels']!r} device kernels, {c3outer['newton']['device_ms']!r} device ms, {c3outer['newton']['wall_ms']!r} ms wall, {c3outer['newton']['readbacks']!r} readbacks, busy {c3outer['newton']['busy']:.4f}")
+    del s3
+    _, config3_lu = phase_config3_lu(device)
+    _, simplex_file = phase_simplex_file(device)
+    counts_by_path = {
+        "stationary": runs[0]["counts"], "unsteady": unsteady["counts"], "config1_blockdiag": config1["counts"],
+        "simplex_config3": config3["counts"], "simplex_config3_lu": config3_lu["counts"],
+        "simplex_file": simplex_file["counts"],
+    }
     print(kernel_line(errs, times, config1["counts"], counts_by_path))
     print(f"[budget] script wall {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())

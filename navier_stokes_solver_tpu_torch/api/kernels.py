@@ -18,10 +18,17 @@ from navier_stokes_solver_tpu_torch.precond import (
     make_krylov_lo,
     make_preconditioner,
 )
+from navier_stokes_solver_tpu_torch.unstructured import ops as simplex_ops
 
 __all__ = ["assemble_kernel", "solve_kernel", "update_solution", "lift_drag_kernel"]
 
 _SOLVERS = {0: gmres, 1: fgmres, 2: bicgstab}
+
+
+def _ops_for(disc):
+    """Backend operators: the structured lattice (``ops.matfree``) or the
+    simplex mesh (``unstructured.ops``)."""
+    return matfree if isinstance(disc, Disc) else simplex_ops
 
 
 def assemble_kernel(
@@ -30,9 +37,10 @@ def assemble_kernel(
     """Residual assembly + norm (the reference's assemble_system + l2_norm,
     NSSolver.cpp:700-707).  Returns ``(rhs, ||rhs||)``, the norm a 0-dim
     tensor."""
-    linq = None if stokes else matfree.eval_state(disc, st)
-    dF = matfree.diag_F(disc, nu, inv_dt, linq, stokes=stokes)
-    rhs = matfree.residual(
+    ops = _ops_for(disc)
+    linq = None if stokes else ops.eval_state(disc, st)
+    dF = ops.diag_F(disc, nu, inv_dt, linq, stokes=stokes)
+    rhs = ops.residual(
         disc, nu, inv_dt, st, u_old, dF, stokes=stokes, inlet_amp=inlet_amp,
         consistent=consistent,
     )
@@ -67,25 +75,25 @@ def solve_kernel(
     continuation chunks of one logical solve.  BiCGStab (``solver_type``
     2) takes no restart basis and no GMRES-IR cycles.
     """
-    linq = None if stokes else matfree.eval_state(disc, st)
-    dF = matfree.diag_F(disc, nu, inv_dt, linq, stokes=stokes)
+    ops = _ops_for(disc)
+    linq = None if stokes else ops.eval_state(disc, st)
+    dF = ops.diag_F(disc, nu, inv_dt, linq, stokes=stokes)
     ctx = LinearContext(
         disc=disc, nu=nu, inv_dt=inv_dt, stokes=stokes, linq=linq, diag_f=dF,
-        state_u=None if stokes else st.u,
+        state_u=None if stokes else st.u, ops=ops,
     )
     M = make_preconditioner(prec_type, ctx, variant=variant, cfg=precond_cfg)
-
-    def A(x: Blocks) -> Blocks:
-        return matfree.apply_jacobian(disc, nu, inv_dt, linq, dF, x, stokes=stokes)
+    A = ctx.jacobian()
 
     x0 = delta_prev
     if project_x0:
-        g = matfree.dirichlet_values(disc, inlet_amp)
-        x0u = torch.where(disc.u_dirichlet, g, delta_prev.u)
-        x0 = Blocks(
-            u=torch.where(disc.u_active, x0u, 0.0),
-            p=torch.where(disc.p_active, delta_prev.p, 0.0),
-        )
+        g = ops.dirichlet_values(disc, inlet_amp)
+        x0 = Blocks(u=torch.where(disc.u_dirichlet, g, delta_prev.u), p=delta_prev.p)
+        if isinstance(disc, Disc):  # zero on the lattice's non-existent nodes
+            x0 = Blocks(
+                u=torch.where(disc.u_active, x0.u, 0.0),
+                p=torch.where(disc.p_active, x0.p, 0.0),
+            )
     kw = {}
     if solver_type != 2:
         kw = dict(basis=basis, lo=make_krylov_lo(
@@ -102,5 +110,5 @@ def update_solution(evaluation_point: Blocks, delta: Blocks, alpha: float) -> Bl
     )
 
 
-def lift_drag_kernel(disc: Disc, nu, st: Blocks):
-    return matfree.lift_drag_forces(disc, nu, st)
+def lift_drag_kernel(disc, nu, st: Blocks):
+    return _ops_for(disc).lift_drag_forces(disc, nu, st)

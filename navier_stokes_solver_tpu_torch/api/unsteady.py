@@ -94,6 +94,7 @@ class NSSolver(NSSolverBase):
                 )
 
                 if residual_norm > self.NEWTON_TOL:
+                    t_solve = _time.perf_counter()
                     krylov_iter = self.solve_system(
                         stokes_now, lifting=stokes_now and self.apply_first
                     )
@@ -105,6 +106,9 @@ class NSSolver(NSSolverBase):
                             n_iter=n_iter,
                             residual=residual_norm,
                             krylov_iters=krylov_iter,
+                            # beyond the JAX package's entry: the tangent
+                            # solve's wall time
+                            seconds=_time.perf_counter() - t_solve,
                         )
                     )
                     if krylov_iter == 0:

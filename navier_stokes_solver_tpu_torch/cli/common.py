@@ -1,10 +1,10 @@
 """Shared CLI argument handling (getopt_long parity, test.cpp:37-105): the
 JAX package's flags, defaults and error messages, plus ``--device``.
 
-Flags whose feature is not ported (``-M``, ``--dd``, ``--cavity``,
-``--output``, ``--fused``, ``--direct-lu``, ``--ir mixed``) parse as in
-the JAX CLI; the run then stops when the solver is built, with the
-``NotImplementedError`` that names the feature's ROADMAP item.
+Flags whose feature is not ported (``--dd``, ``--cavity``, ``--output``,
+``--fused``, ``--ir mixed``) parse as in the JAX CLI; the run then stops
+when the solver is built, with the ``NotImplementedError`` that names the
+feature's ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,8 +52,12 @@ def build_parser(unsteady: bool) -> argparse.ArgumentParser:
         const="",
         default=None,
         metavar="FILE",
-        help="the unstructured P2/P1 simplex backend, optionally from a gmsh "
-        ".msh file (not ported yet: ROADMAP.md A.D7)",
+        help="use the unstructured P2/P1 simplex backend (switches FE "
+        "degrees to 2,1).  With FILE, read a gmsh .msh; without, "
+        "triangulate the internal channel at the requested resolution. "
+        "(The reference hardcodes its mesh path, test.cpp:147, and its "
+        "getopt optstring declares 'M:' so '-M' eats the next token, "
+        "test.cpp:39 -- here the argument is real and optional.)",
     )
     p.add_argument(
         "-m",
@@ -124,7 +128,11 @@ def build_parser(unsteady: bool) -> argparse.ArgumentParser:
     p.add_argument(
         "--direct-lu",
         action="store_true",
-        help="direct dense-LU preconditioner (not ported yet: ROADMAP.md A.D7)",
+        help="direct dense-LU preconditioner: factor the full saddle "
+        "Jacobian in f32 once per tangent solve and apply the exact solve "
+        "(the outer Krylov converges in a handful of f64 iterations).  "
+        "Ignored above DIRECT_LU_MAX_N (precond/blocks.py) total DoFs; the "
+        "-p preconditioner applies there.  Default off = parity",
     )
     p.add_argument(
         "--cavity",

@@ -4,13 +4,16 @@ from __future__ import annotations
 
 import json
 import sys
+import time
 
 from navier_stokes_solver_tpu_torch.api import NSSolver
 from navier_stokes_solver_tpu_torch.cli.common import echo_config, parse_options, profiled
 
 
-def main(argv=None):
-    argv = list(argv if argv is not None else sys.argv[1:])
+def run(argv) -> NSSolver:
+    """Everything ``main`` does; returns the solver, with the wall of its
+    time loop (setup excluded) in ``solve_seconds``."""
+    argv = list(argv)
     # extension flag (stationary CLI cousin): one Newton solve per step at
     # the ramp's final viscosity instead of the per-step Re continuation
     direct = "--direct" in argv
@@ -20,10 +23,17 @@ def main(argv=None):
     echo_config(opts, unsteady=True)
     problem = NSSolver(opts)  # --fused raises here (ROADMAP.md A.D5b)
     problem.setup()
+    t0 = time.perf_counter()
     with profiled(opts.profile_dir):
         problem.solve(direct=direct)
+    problem.solve_seconds = time.perf_counter() - t0
     if opts.verbose:
         print("phase timings:", json.dumps(problem.timer.summary()))
+    return problem
+
+
+def main(argv=None):
+    run(argv if argv is not None else sys.argv[1:])
     return 0
 
 

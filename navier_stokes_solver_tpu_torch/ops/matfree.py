@@ -65,6 +65,8 @@ __all__ = [
     "diag_Mp",
     "diag_Lp",
     "lift_drag_forces",
+    "make_apply_F",
+    "make_apply_jacobian",
 ]
 
 
@@ -185,6 +187,12 @@ def apply_F(
     """
     loc = cell_apply_F_lattice(disc, nu, inv_dt, linq, x_u, stokes=stokes)
     return scatter_v_bc(disc, loc, bc_diag=bc_diag, x_u=x_u)
+
+
+def make_apply_F(disc: Disc, nu, inv_dt, linq, *, stokes: bool, bc_diag=None):
+    """``x_u -> apply_F(...)`` of one linearization (the interface the
+    simplex backend implements with element matrices assembled once)."""
+    return lambda x_u: apply_F(disc, nu, inv_dt, linq, x_u, stokes=stokes, bc_diag=bc_diag)
 
 
 def _eye2(disc: Disc) -> torch.Tensor:
@@ -340,6 +348,11 @@ def apply_jacobian(
     yu = torch.where(disc.u_active, yu, x.u)
     yp = torch.where(disc.p_active, yp, x.p)
     return Blocks(u=yu, p=yp)
+
+
+def make_apply_jacobian(disc: Disc, nu, inv_dt, linq, bc_diag, *, stokes: bool):
+    """``x -> apply_jacobian(...)`` of one linearization."""
+    return lambda x: apply_jacobian(disc, nu, inv_dt, linq, bc_diag, x, stokes=stokes)
 
 
 def residual(

@@ -13,12 +13,19 @@ Jacobi-CG on the 1/nu-scaled pressure mass, Cahouet-Chabard's added
 pressure-Laplacian leg, or pressure convection-diffusion (PCD) -- and
 aSIMPLE solves with S-hat = B diag(F)^-1 B^T.  The sweep optionally runs
 in a lower precision inside the f64 outer Krylov (``vmult_dtype``);
-``make_krylov_lo`` configures the GMRES-IR restart cycles.
+``make_krylov_lo`` configures the GMRES-IR restart cycles.  On the ``-M``
+simplex backend the velocity leg is the P2 -> P1 p-multigrid
+(``unstructured/pmg.py``) and the pressure legs take the dense inverses
+when attached (``unstructured/dense.py``).  ``PrecondConfig.direct_lu``
+replaces the block preconditioner by an f32 dense LU of the whole saddle
+Jacobian where the system is small enough (``make_direct_lu``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 from typing import Any, Callable
 
 import torch
@@ -120,7 +127,10 @@ class PrecondConfig:
     # reference's S-hat solve; Stokes outer counts grow ~1/h) or "mass"
     # (the Stokes-correct pressure-mass solve; h-flat counts)
     asimple_stokes_schur: str = "shat"
-    # dense direct-LU preconditioner: not ported
+    # direct dense-LU preconditioner (``make_direct_lu``): factor the whole
+    # saddle Jacobian in f32 once per tangent solve and apply the exact
+    # solve; the outer Krylov then converges in a handful of iterations.
+    # Above ``DIRECT_LU_MAX_N`` unknowns the ``-p`` preconditioner applies.
     direct_lu: bool = False
 
     def check(self) -> None:
@@ -133,11 +143,6 @@ class PrecondConfig:
             raise ValueError(f"unknown schur_mode {self.schur_mode!r}")
         if self.asimple_stokes_schur not in ASIMPLE_STOKES_SCHUR:
             raise ValueError(f"unknown asimple_stokes_schur {self.asimple_stokes_schur!r}")
-        if self.direct_lu:
-            raise NotImplementedError(
-                "direct_lu is not ported yet (ROADMAP.md A.D7, with the "
-                "simplex -M backend)"
-            )
         if self.krylov_cycle_dtype == "mixed":
             raise NotImplementedError(
                 "krylov_cycle_dtype='mixed' is not ported (ROADMAP.md A.14)"
@@ -154,40 +159,54 @@ class LinearContext:
     (the matrix-free analog of the assembled Trilinos blocks handed to
     ``preconditioner.initialize(...)``, NSSolver.cpp:607-651)."""
 
-    disc: Disc
+    disc: Disc | Any  # structured Disc or unstructured SimplexDisc
     nu: float
     inv_dt: float
     stokes: bool
     linq: LinearizationQ | None  # Newton linearization state at q-points
     diag_f: torch.Tensor  # diag of the (post-BC) velocity block
     state_u: torch.Tensor | None = None  # nodal velocity (MG rediscretization)
+    ops: Any = matfree  # backend operators: ops.matfree | unstructured.ops
 
     # ---- block applies (post boundary elimination, NSSolver.cpp:596) ----
+    @functools.cached_property
+    def _apply_F(self):
+        """The velocity block's apply, made once per context (the simplex
+        backend assembles its element matrices there)."""
+        return self.ops.make_apply_F(
+            self.disc, self.nu, self.inv_dt, self.linq, stokes=self.stokes, bc_diag=self.diag_f
+        )
+
     def F(self, x_u):
-        return matfree.apply_F(
-            self.disc, self.nu, self.inv_dt, self.linq, x_u,
-            stokes=self.stokes, bc_diag=self.diag_f,
+        return self._apply_F(x_u)
+
+    def jacobian(self):
+        """``x -> J x`` of this linearization."""
+        return self.ops.make_apply_jacobian(
+            self.disc, self.nu, self.inv_dt, self.linq, self.diag_f, stokes=self.stokes
         )
 
     def B(self, x_u):
-        return matfree.apply_B(self.disc, x_u, stokes=self.stokes)
+        return self.ops.apply_B(self.disc, x_u, stokes=self.stokes)
 
     def Bt(self, x_p):
-        return matfree.apply_Bt(self.disc, x_p, zero_dirichlet_rows=True)
+        return self.ops.apply_Bt(self.disc, x_p, zero_dirichlet_rows=True)
 
     def Mp(self, x_p):
-        return matfree.apply_Mp(self.disc, self.nu, x_p)
+        return self.ops.apply_Mp(self.disc, self.nu, x_p)
 
     def Lp(self, x_p):
         """Pressure Laplacian (the Cahouet-Chabard and PCD legs)."""
-        return matfree.apply_Lp(self.disc, x_p)
+        return self.ops.apply_Lp(self.disc, x_p)
 
     def S(self, x_p):
         """Approximate Schur complement S = B diag(F)^-1 B^T, composed
         matrix-free (replaces the Trilinos ``mmult`` triple product,
-        NSSolver.hpp:286); identity on non-existent pressure lanes."""
+        NSSolver.hpp:286); identity on non-existent pressure lanes of the
+        structured lattice."""
         y = self.B(self.Bt(x_p) / self.diag_f)
-        return torch.where(self.disc.p_active, y, x_p)
+        p_active = getattr(self.disc, "p_active", None)
+        return y if p_active is None else torch.where(p_active, y, x_p)
 
     def jacobi_F(self):
         dinv = 1.0 / self.diag_f
@@ -195,8 +214,18 @@ class LinearContext:
 
     def smoother_F(self, cfg: PrecondConfig):
         """Velocity-block preconditioner: the geometric-multigrid V-cycle
-        when the disc carries a chain, point Jacobi otherwise
-        (``multigrid=False``)."""
+        when the disc carries a chain, the P2 -> P1 p-multigrid on a simplex
+        disc with ``p_mg``, point Jacobi otherwise (``multigrid=False``)."""
+        if getattr(self.disc, "p_mg", False):
+            from navier_stokes_solver_tpu_torch.unstructured.pmg import make_p_vcycle
+
+            return make_p_vcycle(
+                self.disc, self.nu, self.inv_dt, self.state_u,
+                stokes=self.stokes,
+                diag_f=self.diag_f,
+                smooth_degree=cfg.mg_smooth_degree,
+                dtype=torch_dtype(cfg.mg_dtype),
+            )
         if self.disc.mg is None:
             return self.jacobi_F()
         return make_mg_vcycle(
@@ -208,7 +237,7 @@ class LinearContext:
         )
 
     def jacobi_Mp(self):
-        dinv = 1.0 / matfree.diag_Mp(self.disc, self.nu)
+        dinv = 1.0 / self.ops.diag_Mp(self.disc, self.nu)
         return lambda x: dinv * x
 
 
@@ -227,12 +256,28 @@ def _lp_has_vcycle(ctx: LinearContext) -> bool:
     return ctx.disc.mg is not None
 
 
+def _dense_matvec(mat: torch.Tensor):
+    """Apply a stored f32 dense inverse: the product runs in f32 whatever
+    the context dtype (the leg is a preconditioner; an f32-exact solve
+    steers the outer iteration amply), as in the JAX package."""
+    return lambda r: (mat @ r.to(mat.dtype)).to(r.dtype)
+
+
+def _lp_is_exact(ctx: LinearContext) -> bool:
+    """True when the disc carries the dense Lp inverse (the ``-M`` simplex
+    backend up to ``DENSE_SCHUR_MAX_NP`` pressure nodes): one application
+    of the Lp preconditioner is the solve."""
+    return getattr(ctx.disc, "dense_lp_inv", None) is not None
+
+
 def _lp_preconditioner(ctx: LinearContext):
-    """The Lp V-cycle on a disc with a multigrid chain, Jacobi otherwise;
-    in the dtype of ``ctx``."""
+    """The dense Lp inverse when attached, the Lp V-cycle on a disc with a
+    multigrid chain, Jacobi otherwise; in the dtype of ``ctx``."""
+    if _lp_is_exact(ctx):
+        return _dense_matvec(ctx.disc.dense_lp_inv)
     if _lp_has_vcycle(ctx):
         return make_lp_vcycle(ctx.disc)
-    dinv = 1.0 / matfree.diag_Lp(ctx.disc)
+    dinv = 1.0 / ctx.ops.diag_Lp(ctx.disc)
     return lambda r: dinv * r
 
 
@@ -245,12 +290,22 @@ def _make_p_solver(ctx: LinearContext, cfg: PrecondConfig):
     or ``cc_lp_cycles`` residual-corrected V-cycles).  "pcd":
     dp = Mp_raw^-1 Fp Lp^-1 rhs.
     """
-    mp = ctx.jacobi_Mp()
+    dense_mp = getattr(ctx.disc, "dense_mp_raw_inv", None)
+    if dense_mp is not None:
+        # the exact mass solve as one product: apply_Mp = Mp_raw / nu, so
+        # Mp^-1 rhs = nu Mp_raw^-1 rhs
+        mp_raw_inv = _dense_matvec(dense_mp)
 
-    def solve_mass(rhs, tol):
-        dp, _ = cg(ctx.Mp, rhs, torch.zeros_like(rhs), tol=tol,
-                   maxiter=cfg.inner_maxiter, M=mp)
-        return dp
+        def solve_mass(rhs, tol):
+            return ctx.nu * mp_raw_inv(rhs)
+
+    else:
+        mp = ctx.jacobi_Mp()
+
+        def solve_mass(rhs, tol):
+            dp, _ = cg(ctx.Mp, rhs, torch.zeros_like(rhs), tol=tol,
+                       maxiter=cfg.inner_maxiter, M=mp)
+            return dp
 
     mode = _schur_mode(ctx, cfg)
     if mode == "mass":
@@ -258,9 +313,13 @@ def _make_p_solver(ctx: LinearContext, cfg: PrecondConfig):
 
     mlp = _lp_preconditioner(ctx)
     rel = CC_LP_REL
-    # N Jacobi sweeps scaled by inv_dt are worse than no leg at all: the
-    # cycles replace the nested solve only behind a V-cycle
-    cycles = cfg.cc_lp_cycles if _lp_has_vcycle(ctx) else None
+    # One application of the exact inverse is the solve.  N Jacobi sweeps
+    # scaled by inv_dt are worse than no leg at all: the cycles replace the
+    # nested solve only behind a V-cycle.
+    if _lp_is_exact(ctx):
+        cycles = 1
+    else:
+        cycles = cfg.cc_lp_cycles if _lp_has_vcycle(ctx) else None
 
     if cycles is not None:
 
@@ -288,13 +347,13 @@ def _make_p_solver(ctx: LinearContext, cfg: PrecondConfig):
 
         return solve_cc
 
-    dinv_raw = 1.0 / matfree.diag_Mp(ctx.disc, 1.0)
+    dinv_raw = 1.0 / ctx.ops.diag_Mp(ctx.disc, 1.0)
 
     def solve_pcd(rhs, tol):
         z = solve_lp(rhs)
-        wv = matfree.apply_Fp(ctx.disc, ctx.nu, ctx.inv_dt, ctx.linq, z)
+        wv = ctx.ops.apply_Fp(ctx.disc, ctx.nu, ctx.inv_dt, ctx.linq, z)
         dp, _ = cg(
-            lambda x: matfree.apply_Mp_raw(ctx.disc, x),
+            lambda x: ctx.ops.apply_Mp_raw(ctx.disc, x),
             wv, torch.zeros_like(wv), tol=rel * tnorm(wv),
             maxiter=cfg.inner_maxiter, M=lambda r: dinv_raw * r,
         )
@@ -332,31 +391,35 @@ def _fixed_chebyshev(A, dinv, shape, ctx: LinearContext, degree: int):
 
 def _fixed_Mp_solver(ctx: LinearContext):
     """``FIXED_MP_DEGREE`` Chebyshev-Jacobi sweeps on the (well-conditioned)
-    pressure mass."""
-    dinv = 1.0 / matfree.diag_Mp(ctx.disc, ctx.nu)
+    pressure mass, or the exact dense inverse when attached."""
+    dense_mp = getattr(ctx.disc, "dense_mp_raw_inv", None)
+    if dense_mp is not None:
+        raw_inv = _dense_matvec(dense_mp)
+        return lambda rhs: ctx.nu * raw_inv(rhs)
+    dinv = 1.0 / ctx.ops.diag_Mp(ctx.disc, ctx.nu)
     return _fixed_chebyshev(ctx.Mp, dinv, ctx.disc.NP, ctx, FIXED_MP_DEGREE)
 
 
 def _fixed_p_solver(ctx: LinearContext, cfg: PrecondConfig):
     """Fixed-sweep pressure solve ``solve(rhs) -> dp`` (no nested
-    iteration): the Chebyshev mass sweeps, plus one Lp V-cycle per
-    application under Cahouet-Chabard, or the V-cycle / Fp / Jacobi-mass
-    sandwich under PCD.  Without a multigrid chain the Lp leg is
-    ``FIXED_MP_DEGREE`` Chebyshev-Jacobi sweeps: one Jacobi application is
-    far too weak for the inv_dt-scaled leg."""
+    iteration): the Chebyshev mass sweeps, plus one Lp V-cycle (or the
+    dense Lp inverse) per application under Cahouet-Chabard, or the
+    V-cycle / Fp / Jacobi-mass sandwich under PCD.  Without either, the Lp
+    leg is ``FIXED_MP_DEGREE`` Chebyshev-Jacobi sweeps: one Jacobi
+    application is far too weak for the inv_dt-scaled leg."""
     base = _fixed_Mp_solver(ctx)
     mode = _schur_mode(ctx, cfg)
     if mode == "mass":
         return base
-    if _lp_has_vcycle(ctx):
-        mlp = make_lp_vcycle(ctx.disc)
+    if _lp_has_vcycle(ctx) or _lp_is_exact(ctx):
+        mlp = _lp_preconditioner(ctx)
     else:
-        dinv_lp = 1.0 / matfree.diag_Lp(ctx.disc)
+        dinv_lp = 1.0 / ctx.ops.diag_Lp(ctx.disc)
         mlp = _fixed_chebyshev(ctx.Lp, dinv_lp, ctx.disc.NP, ctx, FIXED_MP_DEGREE)
     if mode == "cahouet":
         return lambda rhs: base(rhs) + ctx.inv_dt * mlp(rhs)
-    dinv_raw = 1.0 / matfree.diag_Mp(ctx.disc, 1.0)
-    return lambda rhs: dinv_raw * matfree.apply_Fp(ctx.disc, ctx.nu, ctx.inv_dt, ctx.linq, mlp(rhs))
+    dinv_raw = 1.0 / ctx.ops.diag_Mp(ctx.disc, 1.0)
+    return lambda rhs: dinv_raw * ctx.ops.apply_Fp(ctx.disc, ctx.nu, ctx.inv_dt, ctx.linq, mlp(rhs))
 
 
 def make_block_diagonal(ctx: LinearContext, cfg: PrecondConfig, variant: str):
@@ -529,6 +592,124 @@ def make_asimple(ctx: LinearContext, cfg: PrecondConfig, variant: str):
     return vmult
 
 
+# ---------------------------------------------------------------------------
+# direct dense LU (PrecondConfig.direct_lu)
+# ---------------------------------------------------------------------------
+
+# Largest system (total unknowns, velocity and pressure) the direct LU
+# takes; above it the ``-p`` preconditioner applies.  For one NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md):
+#   * memory: the f32 matrix and its LU factors, 2 n^2 * 4 B, held within
+#     half the card's 80 GB (the rest: the dense Schur inverses, up to
+#     2 GiB, the solve's vectors and the caching allocator's slack) --
+#     n <= 70,710;
+#   * time: the factorization, (2/3) n^3 f32 operations, took 0.255 s at
+#     n = 21,997 (chip_smoke.py config3-lu; ``torch.linalg.lu_factor``),
+#     so 8.5 s at 70,710 and 10 s at 74,750 -- under the memory cap a
+#     factorization stays within ~10 s per tangent solve.
+# The memory bound rounded down: 70,000 (the JAX package's TPU cap was
+# 30,000).
+DIRECT_LU_MAX_N = 70_000
+# one-hot columns per batched Jacobian apply while building the matrix
+DIRECT_LU_CHUNK = 512
+# (n, build seconds, factor seconds) of every factorization, appended by
+# ``make_direct_lu`` (on CUDA each time is taken after a synchronization)
+DIRECT_LU_TIMES: list[dict] = []
+
+
+def _n_unknowns(disc) -> int:
+    return disc.zeros_u().numel() + disc.zeros_p().numel()
+
+
+def _direct_lu_eligible(ctx: LinearContext) -> bool:
+    return _n_unknowns(ctx.disc) <= DIRECT_LU_MAX_N
+
+
+def _sync(device: torch.device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def dense_jacobian(ctx: LinearContext, chunk: int = DIRECT_LU_CHUNK) -> torch.Tensor:
+    """The transpose ``A^T`` [n, n] of the Jacobian's dense matrix in the
+    ordering (u flattened, then p): row j of the result is the Jacobian
+    apply of the one-hot vector e_j, built ``chunk`` columns at a time (a
+    leading batch axis, or ``torch.func.vmap`` where the backend's apply
+    has none) -- so the matrix agrees with the matrix-free apply column for
+    column.  (Rows of ``A^T`` are written contiguously, and
+    ``A^T.mT`` is the column-major layout the LU reads.)"""
+    disc = ctx.disc
+    su, sp = tuple(disc.zeros_u().shape), tuple(disc.zeros_p().shape)
+    nu_ = disc.zeros_u().numel()
+    n = _n_unknowns(disc)
+    J = ctx.jacobian()
+
+    def matvec(xf):  # [..., n] -> [..., n]
+        lead = xf.shape[:-1]
+        y = J(Blocks(u=xf[..., :nu_].reshape(*lead, *su), p=xf[..., nu_:].reshape(*lead, *sp)))
+        return torch.cat([y.u.reshape(*lead, -1), y.p.reshape(*lead, -1)], dim=-1)
+
+    # the simplex Jacobian takes a leading batch axis itself; the
+    # structured one is batched by vmap
+    batched = matvec if getattr(ctx.ops, "JACOBIAN_BATCH_AXIS", False) else torch.func.vmap(matvec)
+    At = torch.empty((n, n), dtype=disc.dtype, device=disc.device)
+    for c0 in range(0, n, chunk):
+        k = min(chunk, n - c0)
+        idx = torch.arange(k, device=disc.device)
+        basis = torch.zeros((k, n), dtype=disc.dtype, device=disc.device)
+        basis[idx, c0 + idx] = 1.0
+        At[c0 : c0 + k] = batched(basis)
+    return At
+
+
+def make_direct_lu(ctx: LinearContext):
+    """Exact solve with the dense LU of the whole saddle Jacobian, in the
+    dtype of ``ctx`` (f32 behind the default ``vmult_dtype``).
+
+    Rows the matrix-free apply leaves exactly zero (orphan lattice nodes
+    inside the voxelized cylinder hole) get an identity diagonal: Krylov
+    residuals are zero there.  Zero *diagonals* alone do not qualify --
+    every pressure row of the saddle system has one.  Rows and then
+    columns are scaled to unit max-norm (the saddle system's momentum rows
+    are ~nu, its continuity rows ~1; equilibration recovers the FEM
+    conditioning and with it the f32 LU's backward error).  Every step
+    after the build works in place, so the memory held is the matrix plus
+    its factors.  Built once per tangent solve, the cadence at which the
+    reference re-initializes its preconditioner (NSSolver.cpp:607-651).
+    """
+    disc = ctx.disc
+    t0 = _sync(disc.device)
+    At = dense_jacobian(ctx)
+    A = At.mT  # a view: the matrix, column-major
+    row_max = torch.zeros(A.shape[0], dtype=A.dtype, device=A.device)
+    c_max = torch.zeros_like(row_max)
+    blk = DIRECT_LU_CHUNK
+    for c0 in range(0, A.shape[0], blk):  # bounded transients
+        row_max = torch.maximum(row_max, At[c0 : c0 + blk].abs().amax(dim=0))
+    zero_row = row_max == 0.0
+    A.diagonal().add_(zero_row.to(A.dtype))
+    r = 1.0 / torch.where(zero_row, 1.0, row_max)
+    A.mul_(r[:, None])
+    for c0 in range(0, A.shape[0], blk):
+        c_max[c0 : c0 + blk] = At[c0 : c0 + blk].abs().amax(dim=1)
+    c = 1.0 / torch.clamp_min(c_max, 1e-30)
+    A.mul_(c[None, :])
+    t1 = _sync(disc.device)
+    LU, piv = torch.linalg.lu_factor(A)
+    del A, At
+    t2 = _sync(disc.device)
+    DIRECT_LU_TIMES.append(dict(n=int(LU.shape[0]), build_s=t1 - t0, factor_s=t2 - t1))
+    nu_ = disc.zeros_u().numel()
+
+    def vmult(src: Blocks) -> Blocks:
+        b = torch.cat([src.u.reshape(-1), src.p.reshape(-1)])
+        x = c * torch.linalg.lu_solve(LU, piv, (r * b)[:, None])[:, 0]
+        return Blocks(u=x[:nu_].reshape(src.u.shape), p=x[nu_:].reshape(src.p.shape))
+
+    return vmult
+
+
 def _cast_ctx(ctx: LinearContext, dtype: torch.dtype) -> LinearContext:
     """Re-land the whole linearization in ``dtype`` -- tensors and the
     scalars ``nu`` and ``inv_dt`` -- for mixed-precision preconditioning."""
@@ -561,20 +742,17 @@ def make_krylov_lo(
     serves the ``apply_F`` calls inside the preconditioner.
     """
     wd = torch_dtype(cfg.krylov_cycle_dtype) if cfg is not None else None
+    if cfg is not None and cfg.direct_lu and _direct_lu_eligible(ctx):
+        # the exact-LU preconditioner converges the outer solve in a handful
+        # of iterations; low-precision cycles would only factor a second time
+        return None
     if wd is None or wd == ctx.disc.dtype:
         # cycles at the operator precision: a no-op LowCycle would still arm
         # the IR stall/fallback machinery
         return None
     ctx_lo = _cast_ctx(ctx, wd)
     M_lo = make_preconditioner(kind, ctx_lo, variant=variant, cfg=cfg)
-
-    def A_lo(x):
-        return matfree.apply_jacobian(
-            ctx_lo.disc, ctx_lo.nu, ctx_lo.inv_dt, ctx_lo.linq, ctx_lo.diag_f, x,
-            stokes=ctx_lo.stokes,
-        )
-
-    return LowCycle(matvec=A_lo, M=M_lo, dtype=wd)
+    return LowCycle(matvec=ctx_lo.jacobian(), M=M_lo, dtype=wd)
 
 
 PRECONDITIONER_NAMES = {0: "blockDiagonal", 1: "blockTriangular", 2: "aSIMPLE"}
@@ -589,7 +767,9 @@ def make_preconditioner(
 ) -> Callable[[Blocks], Blocks]:
     """The block preconditioner ``vmult: Blocks -> Blocks`` (the dispatch
     of NSSolver.cpp:607-668): 0 blockDiagonal, 1 blockTriangular, 2 aSIMPLE
-    (damping ``ASIMPLE_ALPHA``), in the ``variant``'s tolerances."""
+    (damping ``ASIMPLE_ALPHA``), in the ``variant``'s tolerances -- or the
+    direct LU (``PrecondConfig.direct_lu``) where the system has at most
+    ``DIRECT_LU_MAX_N`` unknowns."""
     cfg = cfg or PrecondConfig()
     cfg.check()
     if variant not in VARIANTS:
@@ -605,7 +785,9 @@ def make_preconditioner(
     mixed = vd is not None and vd != out_dtype
     if mixed:
         ctx = _cast_ctx(ctx, vd)
-    if kind == 0:
+    if cfg.direct_lu and _direct_lu_eligible(ctx):
+        vmult = make_direct_lu(ctx)
+    elif kind == 0:
         vmult = make_block_diagonal(ctx, cfg, variant)
     elif kind == 1:
         vmult = make_block_triangular(ctx, cfg, variant)

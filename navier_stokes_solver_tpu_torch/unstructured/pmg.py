@@ -1,0 +1,146 @@
+"""P2 -> P1 p-multigrid for the simplex velocity block.
+
+The port of the JAX package's ``unstructured/pmg.py`` (single device).  On
+an unstructured triangulation the coarse space is the order-reduced P1
+space on the same triangles (p-coarsening):
+
+  * prolongation = nodal P1 evaluation at the P2 nodes: identity on
+    vertices, an edge midpoint takes the mean of its endpoints (exact on
+    P1; two gathers);
+  * restriction = its transpose, a padded gather-sum over each vertex's
+    adjacent midpoints (deterministic);
+  * coarse operator = the same weak form rediscretized with the P1 basis on
+    the same triangles, the linearized convection evaluated from the
+    vertex-injected state;
+  * smoothing = fixed-step Jacobi-preconditioned GMRES
+    (``precond.mg._gmres_smooth``);
+  * coarse solve = Jacobi-preconditioned GMRES to a loose tolerance.
+
+Reference behaviour tied: the inner-solve preconditioner role of
+NSSolverStationary.hpp:225-231 (AMG on the velocity block) /
+NSSolver.hpp:183-189 (ILU).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as Fn
+
+from navier_stokes_solver_tpu_torch.krylov import gmres, tnorm
+from navier_stokes_solver_tpu_torch.ops.matfree import LinearizationQ
+from navier_stokes_solver_tpu_torch.precond.mg import _gmres_smooth, as_dtype_scalar
+from navier_stokes_solver_tpu_torch.unstructured import ops as sops
+from navier_stokes_solver_tpu_torch.unstructured.tri import SimplexDisc
+
+__all__ = ["make_p_vcycle", "prolong", "restrict", "apply_F1", "make_apply_F1", "diag_F1"]
+
+
+def prolong(disc: SimplexDisc, xc: torch.Tensor) -> torch.Tensor:
+    """[2, n_verts] P1 nodal -> [2, n_nodes_v] P2 nodal (exact on P1)."""
+    pad = Fn.pad(xc, (0, 1))
+    vert = pad[:, disc.pmg_vert]
+    mid = 0.5 * (pad[:, disc.pmg_edge[:, 0]] + pad[:, disc.pmg_edge[:, 1]])
+    return torch.where(disc.pmg_vert < disc.n_nodes_p, vert, mid)
+
+
+def restrict(disc: SimplexDisc, rf: torch.Tensor) -> torch.Tensor:
+    """Transpose of ``prolong``: [2, n_nodes_v] -> [2, n_verts]."""
+    add = Fn.pad(0.5 * rf, (0, 1))[:, disc.pmg_mid].sum(dim=-1)
+    return rf[:, disc.pmg_vert_v] + add
+
+
+def _eval_v1(disc: SimplexDisc, u: torch.Tensor):
+    """P1 velocity values / physical gradients at the volume quadrature
+    points ([2, n_verts] in; layouts of ``unstructured.ops``)."""
+    return sops._eval_loc(disc.phi_p, disc.Dp, u.T[disc.dofs_p])
+
+
+def make_apply_F1(disc, nu, inv_dt, linq1, *, stokes, bc_diag):
+    """``x -> F1 x``: the P1 rediscretization of the velocity block (the
+    weak form of ``unstructured.ops.apply_F`` with the P1 basis), element
+    matrices assembled once."""
+    T = disc.n_tri
+    if stokes:
+        elem = sops._stokes_apply(disc.Lpe, nu)
+    else:
+        Fe = sops._velocity_elem(disc.phi_p, disc.PWp, disc.Dp, disc.Lpe, disc.Mpe, nu, inv_dt, linq1)
+        elem = lambda loc: sops._elem_mv(Fe, loc.reshape(T, 6, 1)).reshape(T, 3, 2)
+
+    def apply(x):
+        y = sops._sum_rows(elem(x.T[disc.dofs_p]).reshape(-1, 2), disc.gather_p, True)
+        return torch.where(disc.u_dirichlet_p1, bc_diag * x, y)
+
+    return apply
+
+
+def apply_F1(disc, nu, inv_dt, linq1, x, *, stokes, bc_diag):
+    return make_apply_F1(disc, nu, inv_dt, linq1, stokes=stokes, bc_diag=bc_diag)(x)
+
+
+def diag_F1(disc, nu, inv_dt, linq1, *, stokes):
+    loc = sops._velocity_diag(
+        disc.phi_p, disc.PWp, disc.Dp, disc.Lpe, disc.Mpe, nu, inv_dt, linq1, stokes
+    )
+    d = sops._sum_rows(loc.reshape(-1, 2), disc.gather_p, True)
+    return torch.where(d == 0.0, 1.0, d)
+
+
+def make_p_vcycle(
+    disc: SimplexDisc,
+    nu,
+    inv_dt,
+    state_u,
+    *,
+    stokes: bool,
+    diag_f: torch.Tensor,
+    smooth_degree: int = 3,
+    coarse_iters: int = 60,
+    coarse_rtol: float = 5e-2,
+    dtype: torch.dtype | None = None,
+):
+    """``M(b) -> x``: one two-level V-cycle for the P2 velocity block (fine
+    GMRES smoothing, P1 coarse correction by GMRES to ``coarse_rtol``).
+
+    ``diag_f``: the (post-BC) fine-level diagonal of the caller's
+    linearization.  ``dtype``: compute precision of the cycle.
+    """
+    out_dtype = disc.dtype
+    if dtype is not None and dtype != disc.dtype:
+        disc = disc.to(dtype)
+        diag_f = diag_f.to(dtype)
+        if state_u is not None:
+            state_u = state_u.to(dtype)
+        nu = as_dtype_scalar(nu, dtype)
+        inv_dt = as_dtype_scalar(inv_dt, dtype)
+
+    dir_fine = disc.u_dirichlet
+    dir_coarse = disc.u_dirichlet_p1
+    if stokes or state_u is None:
+        linq = linq1 = None
+    else:
+        vals, grads = sops._eval_v(disc, state_u)
+        linq = LinearizationQ(u=vals, gradu=grads, p=None)
+        v1, g1 = _eval_v1(disc, state_u[:, disc.pmg_vert_v])  # vertex injection
+        linq1 = LinearizationQ(u=v1, gradu=g1, p=None)
+
+    A = sops.make_apply_F(disc, nu, inv_dt, linq, stokes=stokes, bc_diag=diag_f)
+    d1 = diag_F1(disc, nu, inv_dt, linq1, stokes=stokes)
+    A1 = make_apply_F1(disc, nu, inv_dt, linq1, stokes=stokes, bc_diag=d1)
+
+    dinv = 1.0 / diag_f
+    dinv1 = 1.0 / d1
+
+    def M(b):
+        b = b.to(disc.dtype)
+        x = _gmres_smooth(A, dinv, b, torch.zeros_like(b), smooth_degree)
+        r = torch.where(dir_fine, 0.0, b - A(x))
+        rc = torch.where(dir_coarse, 0.0, restrict(disc, r))
+        xc, _ = gmres(
+            A1, rc, torch.zeros_like(rc), tol=coarse_rtol * tnorm(rc),
+            maxiter=coarse_iters, M=lambda v: dinv1 * v, basis=coarse_iters,
+        )
+        x = x + torch.where(dir_fine, 0.0, prolong(disc, xc))
+        x = _gmres_smooth(A, dinv, b, x, smooth_degree)
+        return x.to(out_dtype)
+
+    return M

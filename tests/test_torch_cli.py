@@ -165,9 +165,6 @@ def test_main_prints_the_jax_cli_lift_and_drag(capsys, monkeypatch):
 
 
 UNPORTED_FLAGS = [  # (CLI module, flags, ROADMAP item the error must name)
-    (t_stationary, ["-M"], "A.D7"),
-    (t_stationary, ["-M", "mesh.msh"], "A.D7"),
-    (t_stationary, ["--direct-lu"], "A.D7"),
     (t_stationary, ["--dd", "2"], "A.D9"),
     (t_stationary, ["--cavity"], "A.D6b"),
     (t_stationary, ["--output"], "A.D6b"),

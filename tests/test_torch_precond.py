@@ -135,9 +135,6 @@ def test_krylov_lo_cycle_operators(discs, stokes):
 
 
 UNPORTED = [  # (kind, cfg, variant, ROADMAP item the message must name)
-    (0, {"direct_lu": True}, "stationary", "A.D7"),
-    (1, {"direct_lu": True}, "stationary", "A.D7"),
-    (2, {"direct_lu": True}, "unsteady", "A.D7"),
     (1, {"krylov_cycle_dtype": "mixed"}, "stationary", "A.14"),
     (2, {"krylov_cycle_dtype": "mixed"}, "unsteady", "A.14"),
 ]

@@ -131,13 +131,10 @@ def test_state_from_numpy_residual_and_forces(pair):
 
 
 OUTSIDE_THE_SLICE = [  # (option, ROADMAP item the message must name)
-    (dict(read_mesh_from_file=True), "A.D7"),
-    (dict(mesh_file_name="mesh.msh"), "A.D7"),
     (dict(geometry="cavity"), "A.D6b"),
     (dict(dd=(2, 1)), "A.D9"),
     (dict(write_output=True), "A.D6b"),
     (dict(fused=True), "A.D5b"),
-    (dict(precond_config=PrecondConfig(direct_lu=True)), "A.D7"),
 ]
 
 
