@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Phases (each raises on failure; none catches another's).  They run in this
-order, except that phase 8 runs after phase 10, and phases 8, 12, 13 and 14
-run together after it: the CPU sides of the card-vs-CPU phases (8, 12, 14)
-run in three spawned worker processes meanwhile, which are joined before
+order, except that phase 19 runs right after phase 10 (on its solver), phase
+8 after phase 19, and phases 8, 12, 13, 14 and 18 together after it: the CPU
+sides of the card-vs-CPU phases (8, 12, 14, 18) run in three spawned worker
+processes meanwhile (18's when the first is free), which are joined before
 phase 15 -- so the timed paths before and after them have the host to
-themselves:
+themselves; phase 20 runs after phase 16:
 
   1. device   -- require CUDA; print the card (nvidia-smi name and power
                 limit) and the torch / CUDA versions;
@@ -116,20 +117,49 @@ themselves:
                 step (T = 0.01), Re 1, Cahouet-Chabard, consistent sign:
                 id-10 curved edges present, Newton residual <= 1e-9, finite
                 positive drag;
- 18. report   -- one JSON line of per-kernel results (launches from phase
+ 18. fused-check -- ``NSSolver.solve_fused`` (the fused time loop) on the
+                card against the CPU, all-f64 (``FUSED_CHECK``): structured
+                16x8 Re 10, tol 1e-8, ``newton_max`` 3, ``krylov_maxiter``
+                200, three steps; ``-M`` 24x10 Re 1 (consistent sign,
+                iterative Schur legs), two steps with every tangent solve
+                capped at 40 iterations (whole -M Newton-regime solves run
+                past the stretch where card and CPU agree, phase 14): Newton
+                and Krylov counts per step within 1, drag and lift per step
+                rtol 1e-7, fields 1e-6 of their magnitude; then the first
+                case split after step 1 through a checkpoint directory
+                (save -> load -> resume in a fresh ``solve_fused``) must
+                equal its unsplit card run bit for bit.  The CPU side runs
+                in a worker process;
+ 19. fused-main -- the fused loop at full width, on phase 9's solver: its
+                host step's state written as a step-1 checkpoint, then
+                ``FUSED_MAIN_STEPS`` (two) fused steps, each one
+                ``solve_fused(checkpoint_dir=..., max_steps_this_call=1)``
+                call resuming from the directory, phase 9's preconditioner
+                (Cahouet-Chabard, one Lp V-cycle, f32, basis 30, tol 1e-9):
+                per-step wall, Newton iterations, outers, final residual
+                (each <= 1e-9), finite coefficients, launches of both kernels
+                (counts zeroed just before, read just after);
+ 20. config3-lu-fused -- phase 16 through ``cli.unsteady.run --fused``,
+                ``CONFIG3_LU_STEPS`` steps: per-step walls, Newton iterations,
+                outers, residuals (each <= 1e-9), factorizations; the last
+                drag within rtol 1e-5 of the 800-step record (a fused run);
+ 21. report   -- one JSON line of per-kernel results (launches from phase
                 11 and times at its finest level, 100x33 Stokes, with every
-                path's launches -- 0 on the simplex paths, which run no
-                hand-written kernel -- and every shape's times beside
-                them), the nvidia-smi line,
+                path's launches -- the fused 300x100 path's among them, 0 on
+                the simplex paths, which run no hand-written kernel -- and
+                every shape's times beside them), the nvidia-smi line,
                 then the final ``{"ok": true, "device": ...}`` line.
 
 If the script outgrows its time budget, depth is cut, in this order: the
 stationary bench solve to one run (``SOLVES``), then the unsteady run to
 one step (``UNSTEADY_STEPS``), then config3-lu to 12 steps
-(``CONFIG3_LU_STEPS``), then phase 12's unsteady card-only entry -- all
-four taken: the whole script took 1,040.8 s of its 1,200 s on a slow card
-without the last three -- never a mesh, config3's three steps, the simplex
-check or the unsteady check's second step.  The cuts are printed.
+(``CONFIG3_LU_STEPS``, which config3-lu-fused shares), then phase 12's
+unsteady card-only entry -- all four taken: the whole script took 1,040.8 s
+of its 1,200 s on a slow card without the last three -- then fused-main to
+one step (``FUSED_MAIN_STEPS``; its checkpoint resume is still the one
+from phase 9's state, and fused-check keeps its own round trip) -- never a
+mesh, config3's three steps, the simplex check, the fused check or the
+unsteady check's second step.  The cuts are printed.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -245,6 +275,22 @@ SIMPLEX_FILE_GRID = (264, 49)
 SIMPLEX_FILE_MIN_DOFS = 100_000
 SIMPLEX_FILE_ARGV = ["-T", "0.01,0.01", "-t", "1e-9", "-s", "1", "-r", "1.0", "-p", "1", "--schur", "cahouet",
                      "--consistent-continuity", "--quiet"]
+# fused-check: ``solve_fused`` on the card against the CPU, all-f64, FGMRES +
+# blockTriangular: (entry, SolverOptions fields, solve_fused keywords).  The
+# -M case caps every tangent solve at 40 iterations: whole -M Newton-regime
+# solves run past the stretch where card and CPU agree (phase 14), so its
+# count gate stands on capped solves
+FUSED_CHECK = [
+    ("structured 16x8 Q3/Q2 Re 10, tol 1e-8, three steps",
+     dict(mesh_size=(16, 8), Re=10.0, tolerance=1e-8, time_span=3 * UNSTEADY_DT),
+     dict(newton_max=3, krylov_maxiter=200)),
+    ("-M 24x10 Re 1, consistent sign, iterative Schur legs, two steps, tangent solves capped at 40",
+     dict(mesh_size=SIMPLEX_CHECK_MESH, read_mesh_from_file=True, Re=1.0, tolerance=1e-9,
+          time_span=2 * UNSTEADY_DT, dense_schur=False, consistent_continuity=True),
+     dict(newton_max=3, krylov_maxiter=40)),
+]
+# fused-main: fused steps after phase 9's host step, on its solver and state
+FUSED_MAIN_STEPS = 2
 SOURCES = {
     "cell_apply_F": "navier_stokes_solver_tpu_torch/csrc/cell_apply_f.cu",
     "scatter_v_bc": "navier_stokes_solver_tpu_torch/csrc/scatter_v.cu",
@@ -773,9 +819,28 @@ def steps_of(s):
     return [h for h in _history(s) if h["phase"] == "step"]
 
 
+def fused_steps(s, entries, tag):
+    """Per-step records of ``solve_fused`` history entries (wall, Newton
+    iterations, outers, final Newton residual, coefficients), printed."""
+    ua = s.get_avg_inlet_velocity()
+    coeff = lambda f: 2.0 * f / (ua * ua * 0.1)
+    steps = []
+    for h in entries:
+        rec = {
+            "step": h["step"], "wall_s": h["seconds"], "newton_iterations": h["newton_iters"],
+            "outer": h["krylov_iters"], "newton_residual": h["newton_residual"],
+            "drag_coeff": coeff(h["drag_force"]), "lift_coeff": coeff(h["lift_force"]),
+        }
+        steps.append(rec)
+        print(f"[{tag}] fused step {json.dumps(rec)}")
+    return steps
+
+
 def step_report(s, tag):
     """Per-step records of an unsteady run (wall, Newton iterations, outers
     per tangent solve, final Newton residual, coefficients), printed."""
+    if s.options.fused:
+        return fused_steps(s, [h for h in steps_of(s) if "seconds" in h], tag)
     steps = []
     for h in steps_of(s):
         sv = [x for x in solves_of(s) if x["time"] == h["time"]]
@@ -1114,8 +1179,8 @@ def simplex_tangent_run(device, dense, n):
 
 
 def cpu_job(name):
-    """The CPU side of one card-vs-CPU phase -- "unsteady-check", "matrix"
-    or "simplex-check" -- as plain data, for a worker process."""
+    """The CPU side of one card-vs-CPU phase -- "unsteady-check", "matrix",
+    "simplex-check" or "fused-check" -- as plain data, for a worker process."""
     import torch
 
     torch.set_num_threads(CPU_SIDE_THREADS)
@@ -1129,6 +1194,8 @@ def cpu_job(name):
             [simplex_run(cpu, unsteady, fields, cfg) for _, unsteady, fields, cfg in SIMPLEX_CHECK],
             [simplex_tangent_run(cpu, dense, n) for dense, n, _ in SIMPLEX_TANGENT.values()],
         )
+    if name == "fused-check":
+        return [fused_run(cpu, fields, kw) for _, fields, kw in FUSED_CHECK]
     raise ValueError(f"no CPU side named {name!r}")
 
 
@@ -1291,6 +1358,157 @@ def phase_simplex_file(device):
 
 
 # ---------------------------------------------------------------------------
+# 18. fused-check, 19. fused-main, 20. config3-lu-fused
+# ---------------------------------------------------------------------------
+
+
+def fused_run(device, fields, kw, checkpoint_dir=None, max_steps=None):
+    """One ``FUSED_CHECK`` entry's ``solve_fused`` on one device, all-f64, as
+    plain data: history, host fields, wall."""
+    from navier_stokes_solver_tpu_torch.api import NSSolver, SolverOptions
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    s = NSSolver(SolverOptions(
+        solver_type=1, preconditioner_type=1, time_step=UNSTEADY_DT, verbose=False, device=device,
+        precond_config=PrecondConfig(vmult_dtype=None, mg_dtype=None), **fields,
+    )).setup()
+    t0 = time.perf_counter()
+    s.solve_fused(checkpoint_dir=checkpoint_dir, max_steps_this_call=max_steps, **kw)
+    return {"history": s.history, "fields": s.fields(), "wall_s": time.perf_counter() - t0,
+            "steps_done": s.time_step_index}
+
+
+def phase_fused_check(device, cpu_side=None):
+    """``FUSED_CHECK`` on the card against the same on the CPU (``cpu_side``:
+    the future of ``cpu_job("fused-check")``; by default one worker process
+    started here): Newton and Krylov counts per step within 1, drag and
+    lift per step rtol 1e-7 (the lift floored at 1e-7 of the drag), fields
+    1e-6 of their magnitude.  Then a save -> load -> resume round trip on
+    the card: the first case split after step 1 through a checkpoint
+    directory equals its unsplit run bit for bit."""
+    import tempfile
+
+    import numpy as np
+
+    if cpu_side is None:
+        with cpu_pool(1) as pool:
+            return phase_fused_check(device, pool.submit(cpu_job, "fused-check"))
+    t_all = time.perf_counter()
+    card = [fused_run(device, fields, kw) for _, fields, kw in FUSED_CHECK]
+    _, fields, kw = FUSED_CHECK[0]
+    with tempfile.TemporaryDirectory() as ck:
+        first = fused_run(device, fields, kw, checkpoint_dir=ck, max_steps=1)
+        split = fused_run(device, fields, kw, checkpoint_dir=ck)
+    t_card = time.perf_counter() - t_all
+    cpu = cpu_side.result()
+    print(f"[fused-check] card side {t_card:.1f} s; waited {time.perf_counter() - t_all - t_card:.1f} s more for the CPU side")
+    key = ("newton_iters", "krylov_iters")
+    for (name, _, _), g, c in zip(FUSED_CHECK, card, cpu):
+        counts = [(tuple(hg[k] for k in key), tuple(hc[k] for k in key)) for hg, hc in zip(g["history"], c["history"])]
+        print(f"[fused-check] {name}: walls card {g['wall_s']:.2f} s, CPU {c['wall_s']:.2f} s; (Newton, Krylov) per step (card, CPU) {counts}")
+        if len(g["history"]) != len(c["history"]) or not g["history"]:
+            raise RuntimeError(f"fused-check {name}: {len(g['history'])} steps on the card, {len(c['history'])} on the CPU")
+        if any(abs(a - b) > 1 for gc, cc in counts for a, b in zip(gc, cc)):
+            raise RuntimeError(f"fused-check {name}: counts {counts} differ by more than 1")
+        for hg, hc in zip(g["history"], c["history"]):
+            dg, dc, lg, lc = hg["drag_force"], hc["drag_force"], hg["lift_force"], hc["lift_force"]
+            print(f"[fused-check] {name}: step {hg['step']} drag card {dg!r} CPU {dc!r} (|diff| {abs(dg - dc):.3e}); lift card {lg!r} CPU {lc!r} (|diff| {abs(lg - lc):.3e}); final residual card {hg['newton_residual']:.3e} CPU {hc['newton_residual']:.3e}")
+            if not (abs(dg - dc) <= 1e-7 * abs(dc) and abs(lg - lc) <= 1e-7 * max(abs(lc), abs(dc))):
+                raise RuntimeError(f"fused-check {name}: drag/lift at step {hg['step']} outside rtol 1e-7")
+        for field, a, b in zip(("velocity", "pressure"), g["fields"], c["fields"]):
+            err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+            print(f"[fused-check] {name}: {field} max|card - CPU| {err:.3e} (max|CPU| {scale:.3e})")
+            if not err <= FIELD_GATE * scale:
+                raise RuntimeError(f"fused-check {name}: {field} differs by {err} > {FIELD_GATE} x {scale}")
+    whole = card[0]
+    same = (
+        first["steps_done"] == 1 and split["steps_done"] == len(whole["history"])
+        and [tuple(h[k] for k in ("step", "drag_force", "lift_force") + key) for h in split["history"]]
+        == [tuple(h[k] for k in ("step", "drag_force", "lift_force") + key) for h in whole["history"]]
+        and all(np.array_equal(a, b) for a, b in zip(split["fields"], whole["fields"]))
+    )
+    print(f"[fused-check] round trip on the card ({FUSED_CHECK[0][0]}): step 1 to a checkpoint directory, resumed to step {split['steps_done']} in a fresh solve_fused: bit-identical to the unsplit run {same}")
+    if not same:
+        raise RuntimeError("fused-check: the checkpointed split run differs from the unsplit run")
+    print(f"[fused-check] {len(FUSED_CHECK)} cases and the round trip in {time.perf_counter() - t_all:.1f} s")
+
+
+def phase_fused_main(su):
+    """``FUSED_MAIN_STEPS`` fused steps at the north-star width, on phase 9's
+    solver from the state its host step ended in: that state is written as
+    a step-1 checkpoint, and each fused step is one ``solve_fused`` call
+    resuming from the directory (``max_steps_this_call=1``).  Counts zeroed
+    just before, read just after."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from navier_stokes_solver_tpu_torch.io import save_time_state
+    from navier_stokes_solver_tpu_torch.timeloop import initial_state
+
+    host = steps_of(su)[-1]
+    n_host = int(host["step"])
+    su.options = dataclasses.replace(su.options, time_span=(n_host + FUSED_MAIN_STEPS) * UNSTEADY_DT)
+    scalar = lambda v: torch.tensor(v, dtype=su.disc.dtype, device=su.device)
+    ts = initial_state(su.disc)._replace(
+        solution=su.solution, time=scalar(su.time), step=torch.tensor(n_host, dtype=torch.int32, device=su.device),
+        drag=scalar(host["drag_force"]), lift=scalar(host["lift_force"]),
+    )
+    hist = [[h["drag_force"], h["lift_force"], len([x for x in solves_of(su) if x["time"] == h["time"]]),
+             sum(x["krylov_iters"] for x in solves_of(su) if x["time"] == h["time"])] for h in steps_of(su)]
+    fresh = []
+    with tempfile.TemporaryDirectory() as ck:
+        save_time_state(ts, ck)
+        with open(os.path.join(ck, "history.json"), "w") as f:
+            json.dump(hist, f)
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(FUSED_MAIN_STEPS):
+            n = len(su.history)
+            su.solve_fused(checkpoint_dir=ck, max_steps_this_call=1)
+            fresh += [h for h in su.history[n:] if "seconds" in h]
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    print(f"[fused-main] {UNSTEADY_MESH[0]}x{UNSTEADY_MESH[1]} Q3/Q2 Re 100, n_dofs {su.n_dofs}: steps {n_host + 1}-{n_host + FUSED_MAIN_STEPS} from phase 9's step-{n_host} state, one solve_fused call each (checkpoint resume), {wall!r} s")
+    steps = fused_steps(su, fresh, "fused-main")
+    print(f"[fused-main] launches {json.dumps(counts)}")
+    if [r["step"] for r in steps] != list(range(n_host + 1, n_host + FUSED_MAIN_STEPS + 1)):
+        raise RuntimeError(f"fused-main ran steps {[r['step'] for r in steps]}")
+    check_steps(su, steps, "fused-main")
+    u, _ = su.fields()
+    if not np.isfinite(u).all():
+        raise RuntimeError("fused-main: non-finite velocity")
+    for name, c in counts.items():
+        if c["launches"] <= 0:
+            raise RuntimeError(f"the fused path never launched {name}")
+    return {"wall_s": wall, "steps": steps, "counts": counts}
+
+
+def phase_config3_lu_fused(device):
+    """config3-lu through ``cli.unsteady.run --fused``, ``CONFIG3_LU_STEPS``
+    steps: the last step's drag against the 800-step record (itself a fused
+    run)."""
+    from navier_stokes_solver_tpu_torch.precond import blocks
+
+    ref = northstar(CONFIG3_METRIC, n_steps=800)["extra"]
+    argv = list(CONFIG3_ARGV)
+    argv[argv.index("-T") + 1] = f"{CONFIG3_LU_STEPS * UNSTEADY_DT:g},{UNSTEADY_DT:g}"
+    blocks.DIRECT_LU_TIMES.clear()
+    s, run = unsteady_cli(device, argv + ["--direct-lu", "--fused"], "config3-lu-fused")
+    lu = list(blocks.DIRECT_LU_TIMES)
+    drag = run["steps"][-1]["drag_coeff"]
+    rel = abs(drag - ref["drag_coeff_last"]) / abs(ref["drag_coeff_last"])
+    print(f"[config3-lu-fused] {len(lu)} factorizations (factor {min(t['factor_s'] for t in lu):.3f}-{max(t['factor_s'] for t in lu):.3f} s); Newton iterations per step {[r['newton_iterations'] for r in run['steps']]}, outers per step {[r['outer'] for r in run['steps']]} (800-step record's first 12 {ref['krylov_iters_per_step'][:CONFIG3_LU_STEPS]}); last step drag {drag!r} (record {ref['drag_coeff_last']!r}, rel diff {rel:.3e}, gate {CONFIG3_LU_DRAG_RTOL:g})")
+    if s.n_dofs != CONFIG3_DOFS or len(run["steps"]) != CONFIG3_LU_STEPS:
+        raise RuntimeError(f"config3-lu-fused: {s.n_dofs} DoFs, {len(run['steps'])} steps")
+    if not rel <= CONFIG3_LU_DRAG_RTOL:
+        raise RuntimeError(f"config3-lu-fused: drag {drag!r} not within rtol {CONFIG3_LU_DRAG_RTOL} of {ref['drag_coeff_last']!r}")
+    return s, run
+
+
+# ---------------------------------------------------------------------------
 # report
 # ---------------------------------------------------------------------------
 
@@ -1335,10 +1553,11 @@ def main():
 
     print(
         f"[budget] depth cuts taken: stationary bench solves {SOLVES} of 2; unsteady 300x100 steps {UNSTEADY_STEPS} of 2 "
-        f"(of the 800 of T = 8); config3-lu {CONFIG3_LU_STEPS} of 20 steps (of the record's 800); phase 12's unsteady "
-        f"card-only entry dropped. Not cut: unsteady-check steps {CHECK_STEPS}, config 1, matrix at "
-        f"{MATRIX_MESH[0]}x{MATRIX_MESH[1]}, simplex check at -M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]}, "
-        f"config3 its 3 steps, simplex-file one step"
+        f"(of the 800 of T = 8); config3-lu and config3-lu-fused {CONFIG3_LU_STEPS} of 20 steps (of the record's 800); "
+        f"phase 12's unsteady card-only entry dropped; fused-main {FUSED_MAIN_STEPS} of 2 steps. Not cut: "
+        f"unsteady-check steps {CHECK_STEPS}, config 1, matrix at {MATRIX_MESH[0]}x{MATRIX_MESH[1]}, simplex check at "
+        f"-M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]}, fused check (3 and 2 steps), config3 its 3 steps, "
+        f"simplex-file one step"
     )
     phase_build()
     errs = phase_check(device)
@@ -1360,26 +1579,31 @@ def main():
     su, unsteady = phase_unsteady_main(device)
     uouter = phase_outer(su, regimes=(False,), tag="unsteady-outer")
     print(f"[unsteady-main] per-step walls {[r['wall_s'] for r in unsteady['steps']]} s; outer iterations per step {[r['outer'] for r in unsteady['steps']]}; Newton regime per outer iteration: {uouter['newton']['kernels']!r} device kernels, {uouter['newton']['readbacks']!r} readbacks, busy {uouter['newton']['busy']:.4f}")
+    fused_main = phase_fused_main(su)
     del su
     # the card-vs-CPU phases, after the timed paths before them and before
     # those after them: their CPU sides run meanwhile in worker processes
     t_checks = time.perf_counter()
     with cpu_pool(3) as pool:
-        cpu = {name: pool.submit(cpu_job, name) for name in ("unsteady-check", "matrix", "simplex-check")}
+        # the fourth CPU side starts when the first worker is free
+        cpu = {name: pool.submit(cpu_job, name) for name in ("unsteady-check", "matrix", "simplex-check", "fused-check")}
         phase_unsteady_check(device, cpu["unsteady-check"])
         phase_matrix(device, cpu["matrix"])
         phase_profile(device)
         phase_simplex_check(device, cpu["simplex-check"])
-    print(f"[budget] card-vs-CPU phases (8, 12-14) {time.perf_counter() - t_checks:.1f} s")
+        phase_fused_check(device, cpu["fused-check"])
+    print(f"[budget] card-vs-CPU phases (8, 12-14, 18) {time.perf_counter() - t_checks:.1f} s")
     s3, config3 = phase_config3(device)
     c3outer = phase_outer(s3, regimes=(False,), tag="config3-outer")
     print(f"[config3] setup {config3['setup_s']:.3f} s, per-step walls {[r['wall_s'] for r in config3['steps']]} s, Newton iterations per step {[r['newton_iterations'] for r in config3['steps']]}, outers per step {[r['outer'] for r in config3['steps']]}; Newton regime per outer iteration: {c3outer['newton']['kernels']!r} device kernels, {c3outer['newton']['device_ms']!r} device ms, {c3outer['newton']['wall_ms']!r} ms wall, {c3outer['newton']['readbacks']!r} readbacks, busy {c3outer['newton']['busy']:.4f}")
     del s3
     _, config3_lu = phase_config3_lu(device)
+    _, config3_lu_fused = phase_config3_lu_fused(device)
     _, simplex_file = phase_simplex_file(device)
     counts_by_path = {
-        "stationary": runs[0]["counts"], "unsteady": unsteady["counts"], "config1_blockdiag": config1["counts"],
-        "simplex_config3": config3["counts"], "simplex_config3_lu": config3_lu["counts"],
+        "stationary": runs[0]["counts"], "unsteady": unsteady["counts"], "unsteady_fused": fused_main["counts"],
+        "config1_blockdiag": config1["counts"], "simplex_config3": config3["counts"],
+        "simplex_config3_lu": config3_lu["counts"], "simplex_config3_lu_fused": config3_lu_fused["counts"],
         "simplex_file": simplex_file["counts"],
     }
     print(kernel_line(errs, times, config1["counts"], counts_by_path))

@@ -17,8 +17,8 @@ from navier_stokes_solver_tpu_torch.obs import PhaseTimer
 from navier_stokes_solver_tpu_torch.ops import Blocks, make_disc
 from navier_stokes_solver_tpu_torch.precond import PrecondConfig, attach_mg
 from navier_stokes_solver_tpu_torch.precond.blocks import (
-    DIRECT_LU_MAX_N,
     PRECONDITIONER_NAMES,
+    direct_lu_eligible,
     torch_dtype,
 )
 from navier_stokes_solver_tpu_torch.unstructured import make_simplex_disc, triangulate_channel
@@ -72,7 +72,9 @@ class SolverOptions:
     # directory of the lift/drag coefficient files (write_lift_drag_to_file)
     output_dir: str = "."
     profile_dir: str = ""  # the CLI captures a torch.profiler trace here
-    fused: bool = False  # the fused time loop: not ported
+    # the CLI's --fused: the unsteady solver runs ``solve_fused`` (the
+    # stationary solver ignores it, as the JAX package's does)
+    fused: bool = False
     # Stationary continuation: skip the reference's repeat Stokes-regime
     # tangent solves, whose state-independent rhs makes the strict-< line
     # search reject every update (see the JAX package's SolverOptions).
@@ -104,10 +106,6 @@ class SolverOptions:
             )
         if self.write_output:
             raise NotImplementedError("VTU output is not ported yet (ROADMAP.md A.D6b)")
-        if self.fused:
-            raise NotImplementedError(
-                "the fused time loop is not ported yet (ROADMAP.md A.D5b)"
-            )
         if self.solver_type not in (0, 1, 2):
             raise ValueError(f"invalid solver_type {self.solver_type!r}")
         if self.preconditioner_type not in (0, 1, 2):
@@ -197,12 +195,9 @@ class NSSolverBase:
         self.log(f"    total    = {n_dofs_v + n_dofs_p}")
         self.n_dofs = n_dofs_v + n_dofs_p
         cfg = o.precond_config
-        if cfg is not None and cfg.direct_lu and self.n_dofs > DIRECT_LU_MAX_N:
-            self.log(
-                f"  direct LU: {self.n_dofs} DoFs exceed DIRECT_LU_MAX_N = "
-                f"{DIRECT_LU_MAX_N}; the -p preconditioner "
-                f"({PRECONDITIONER_NAMES[o.preconditioner_type]}) applies"
-            )
+        if cfg is not None and cfg.direct_lu:
+            name = PRECONDITIONER_NAMES[o.preconditioner_type]
+            direct_lu_eligible(self.disc, log=lambda msg: self.log(f"{msg} ({name})"))
 
         zero = Blocks(u=self.disc.zeros_u(), p=self.disc.zeros_p())
         self.solution = zero

@@ -10,6 +10,8 @@ the boundary updates at zero.
 
 from __future__ import annotations
 
+import json
+import os
 import time as _time
 
 from navier_stokes_solver_tpu_torch.api import kernels
@@ -180,7 +182,143 @@ class NSSolver(NSSolverBase):
             )
             self.log("")
 
-    def solve_fused(self, **kwargs):
-        raise NotImplementedError(
-            "solve_fused (the fused time loop) is not ported yet (ROADMAP.md A.D5b)"
+    # ------------------------------------------------------------------
+    def solve_fused(self, *, newton_max: int | None = None,
+                    newton_tol: float | None = None,
+                    krylov_maxiter: int = 2000,
+                    chunk_steps: int | None = None,
+                    checkpoint_dir: str | None = None,
+                    max_steps_this_call: int | None = None):
+        """The fused time loop (``timeloop``): every step one Newton solve at
+        the ramp's final viscosity 1 + 10 floor((Re - 1) / 10), warm-started
+        from the previous step, capped at ``newton_max`` iterations of one
+        Krylov call of at most ``krylov_maxiter`` iterations each.  Returns
+        the per-step history of ``run_time_loop``.
+
+        ``checkpoint_dir``: write the ``TimeState`` and the per-step
+        (drag, lift, Newton iterations, Krylov iterations) history after
+        every ``chunk_steps`` steps (default 1 with a checkpoint and on the
+        card), and resume from that checkpoint on entry if one exists --
+        elastic restart of long runs; the JAX package's format, so either
+        package resumes the other's.  ``max_steps_this_call``: stop, with a
+        checkpoint written, after this many steps; callers detect a partial
+        run by ``self.time_step_index < round(T / dt)``.
+        """
+        from navier_stokes_solver_tpu_torch.io import load_time_state, save_time_state
+        from navier_stokes_solver_tpu_torch.timeloop import (
+            initial_state,
+            make_time_step,
+            run_time_loop,
         )
+
+        if self.Re < 1.0:
+            # the reference's ramp (current_Re = 1; current_Re <= target)
+            # never solves for targets below 1 (NSSolver.cpp:684)
+            raise ValueError(
+                "solve_fused requires Re >= 1: the reference's per-step "
+                "continuation never solves for targets below 1, so there "
+                "is no host trajectory to reproduce"
+            )
+        o = self.options
+        n_steps = int(round(o.time_span / o.time_step))
+        step = make_time_step(
+            self.disc,
+            solver_type=o.solver_type,
+            prec_type=o.preconditioner_type,
+            tol=o.tolerance,
+            newton_max=newton_max or self.NEWTON_MAX_ITERS,
+            newton_tol=newton_tol or self.NEWTON_TOL,
+            krylov_maxiter=krylov_maxiter,
+            basis=max(1, int(o.krylov_basis)),
+            precond_cfg=o.precond_config,
+            consistent=o.consistent_continuity,
+        )
+        ts0 = initial_state(self.disc)._replace(solution=self.solution)
+
+        # elastic resume: the TimeState and per-step history written by an
+        # earlier (interrupted or step-budgeted) call
+        start, prior = 0, []
+        if checkpoint_dir is not None and os.path.exists(
+            os.path.join(checkpoint_dir, "time_state.npz")
+        ):
+            ts0 = load_time_state(self.disc, checkpoint_dir, template=ts0)
+            start = int(ts0.step)
+            hist_path = os.path.join(checkpoint_dir, "history.json")
+            if os.path.exists(hist_path):
+                with open(hist_path) as f:
+                    prior = json.load(f)
+            if len(prior) != start:
+                raise ValueError(
+                    f"checkpoint at {checkpoint_dir} is inconsistent: "
+                    f"TimeState.step={start} but history has {len(prior)} entries"
+                )
+            if start >= n_steps:
+                raise ValueError(
+                    f"checkpoint at {checkpoint_dir} already covers all {n_steps} steps"
+                )
+            self.log(f"  fused: resuming from checkpoint at step {start}/{n_steps}")
+        # the reference's ramp current_Re = 1, 11, 21, ... ends at
+        # 1 + 10 k (NSSolver.cpp:684-687): its final viscosity
+        self.nu = 1.0 / (1.0 + 10.0 * ((self.Re - 1.0) // 10.0))
+        if checkpoint_dir is not None or self.device.type != "cpu":
+            chunk_steps = chunk_steps or 1
+
+        todo = n_steps - start
+        if max_steps_this_call is not None:
+            todo = min(todo, max(1, int(max_steps_this_call)))
+
+        acc = [list(h) for h in prior]
+        on_chunk = None
+        if checkpoint_dir is not None:
+
+            def on_chunk(ts, out_host):
+                d, l, ni, ki = out_host
+                acc.extend([float(a), float(b), int(c), int(e)] for a, b, c, e in zip(d, l, ni, ki))
+                save_time_state(ts, checkpoint_dir)
+                tmp = os.path.join(checkpoint_dir, "history.json.tmp")
+                with open(tmp, "w") as f:
+                    json.dump(acc, f)
+                os.replace(tmp, os.path.join(checkpoint_dir, "history.json"))
+
+        final, hist = run_time_loop(
+            step, ts0, self.nu, o.time_step, todo, chunk=chunk_steps,
+            progress=lambda done, total, w: self.log(
+                f"  fused: step {start + done}/{n_steps} retired ({w:.1f} s)"
+            ),
+            on_chunk=on_chunk,
+        )
+
+        self.solution = final.solution
+        self.time = float(final.time)
+        self.time_step_index = int(final.step)
+        self.drag_force = float(final.drag)
+        self.lift_force = float(final.lift)
+        self.compute_drag_coeff()
+        self.compute_lift_coeff()
+        rows = [tuple(h) for h in prior] + list(
+            zip(*(hist[k] for k in ("drag", "lift", "newton_iters", "krylov_iters")))
+        )
+        for i, (d, l, ni, ki) in enumerate(rows):
+            entry = dict(
+                phase="step",
+                time=(i + 1) * o.time_step,
+                step=i + 1,
+                drag_force=float(d),
+                lift_force=float(l),
+                newton_iters=int(ni),
+                krylov_iters=int(ki),
+            )
+            if i >= start:
+                # beyond the JAX package's entry: the Newton residual the
+                # step ended with, and the step's wall time
+                entry.update(
+                    newton_residual=float(hist["final_residual"][i - start]),
+                    seconds=float(hist["seconds"][i - start]),
+                )
+            self.history.append(entry)
+        if start + todo < n_steps:
+            self.log(
+                f"  fused: stopped after {start + todo}/{n_steps} steps "
+                "(max_steps_this_call); resume from the checkpoint"
+            )
+        return hist

@@ -2,7 +2,7 @@
 JAX package's flags, defaults and error messages, plus ``--device``.
 
 Flags whose feature is not ported (``--dd``, ``--cavity``, ``--output``,
-``--fused``, ``--ir mixed``) parse as in the JAX CLI; the run then stops
+``--ir mixed``) parse as in the JAX CLI; the run then stops
 when the solver is built, with the ``NotImplementedError`` that names the
 feature's ROADMAP item.
 """
@@ -43,7 +43,9 @@ def build_parser(unsteady: bool) -> argparse.ArgumentParser:
         p.add_argument(
             "--fused",
             action="store_true",
-            help="the fused on-device time loop (not ported yet: ROADMAP.md A.D5b)",
+            help="the fused time loop (NSSolver.solve_fused): one Newton solve "
+            "per step at the target viscosity, warm-started from the previous "
+            "step (skips the per-step Re continuation ramp)",
         )
     p.add_argument(
         "-M",
@@ -131,8 +133,10 @@ def build_parser(unsteady: bool) -> argparse.ArgumentParser:
         help="direct dense-LU preconditioner: factor the full saddle "
         "Jacobian in f32 once per tangent solve and apply the exact solve "
         "(the outer Krylov converges in a handful of f64 iterations).  "
-        "Ignored above DIRECT_LU_MAX_N (precond/blocks.py) total DoFs; the "
-        "-p preconditioner applies there.  Default off = parity",
+        "Ignored above DIRECT_LU_MAX_N (precond/blocks.py) unknowns -- the "
+        "solution vector's length, which on the structured lattice also "
+        "counts the inactive nodes inside the cylinder; the -p "
+        "preconditioner applies there, and setup says so.  Default off = parity",
     )
     p.add_argument(
         "--cavity",

@@ -12,7 +12,9 @@ from navier_stokes_solver_tpu_torch.cli.common import echo_config, parse_options
 
 def run(argv) -> NSSolver:
     """Everything ``main`` does; returns the solver, with the wall of its
-    time loop (setup excluded) in ``solve_seconds``."""
+    time loop (setup excluded) in ``solve_seconds``.  ``--fused`` runs
+    ``solve_fused`` (before ``--direct``) and then prints the last step's
+    coefficients."""
     argv = list(argv)
     # extension flag (stationary CLI cousin): one Newton solve per step at
     # the ramp's final viscosity instead of the per-step Re continuation
@@ -21,12 +23,18 @@ def run(argv) -> NSSolver:
         argv.remove("--direct")
     opts = parse_options(argv, unsteady=True)
     echo_config(opts, unsteady=True)
-    problem = NSSolver(opts)  # --fused raises here (ROADMAP.md A.D5b)
+    problem = NSSolver(opts)
     problem.setup()
     t0 = time.perf_counter()
     with profiled(opts.profile_dir):
-        problem.solve(direct=direct)
+        if opts.fused:
+            problem.solve_fused()
+        else:
+            problem.solve(direct=direct)
     problem.solve_seconds = time.perf_counter() - t0
+    if opts.fused:
+        problem.print_lift_coeff()
+        problem.print_drag_coeff()
     if opts.verbose:
         print("phase timings:", json.dumps(problem.timer.summary()))
     return problem

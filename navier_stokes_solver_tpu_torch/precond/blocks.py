@@ -621,8 +621,19 @@ def _n_unknowns(disc) -> int:
     return disc.zeros_u().numel() + disc.zeros_p().numel()
 
 
-def _direct_lu_eligible(ctx: LinearContext) -> bool:
-    return _n_unknowns(ctx.disc) <= DIRECT_LU_MAX_N
+def direct_lu_eligible(disc, log=None) -> bool:
+    """Whether the direct LU takes a system on ``disc``: at most
+    ``DIRECT_LU_MAX_N`` unknowns, the solution vector's length (on the
+    structured lattice it also counts the inactive nodes inside the
+    cylinder, so it exceeds the FE DoF count).  With ``log``, a refusal is
+    reported through it."""
+    n = _n_unknowns(disc)
+    if n <= DIRECT_LU_MAX_N:
+        return True
+    if log is not None:
+        log(f"  direct LU: {n} unknowns exceed DIRECT_LU_MAX_N = {DIRECT_LU_MAX_N}; "
+            "the -p preconditioner applies")
+    return False
 
 
 def _sync(device: torch.device) -> float:
@@ -742,7 +753,7 @@ def make_krylov_lo(
     serves the ``apply_F`` calls inside the preconditioner.
     """
     wd = torch_dtype(cfg.krylov_cycle_dtype) if cfg is not None else None
-    if cfg is not None and cfg.direct_lu and _direct_lu_eligible(ctx):
+    if cfg is not None and cfg.direct_lu and direct_lu_eligible(ctx.disc):
         # the exact-LU preconditioner converges the outer solve in a handful
         # of iterations; low-precision cycles would only factor a second time
         return None
@@ -785,7 +796,7 @@ def make_preconditioner(
     mixed = vd is not None and vd != out_dtype
     if mixed:
         ctx = _cast_ctx(ctx, vd)
-    if cfg.direct_lu and _direct_lu_eligible(ctx):
+    if cfg.direct_lu and direct_lu_eligible(ctx.disc):
         vmult = make_direct_lu(ctx)
     elif kind == 0:
         vmult = make_block_diagonal(ctx, cfg, variant)

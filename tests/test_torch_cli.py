@@ -169,7 +169,6 @@ UNPORTED_FLAGS = [  # (CLI module, flags, ROADMAP item the error must name)
     (t_stationary, ["--cavity"], "A.D6b"),
     (t_stationary, ["--output"], "A.D6b"),
     (t_stationary, ["--ir", "mixed"], "A.14"),
-    (t_unsteady, ["--fused"], "A.D5b"),
 ]
 
 
@@ -178,10 +177,10 @@ def test_unported_flags_stop_naming_their_item():
         with pytest.raises(NotImplementedError, match=re.escape(item)):
             cli.main(["-m", "16,8", "--quiet"] + flags + CPU)
     out = subprocess.run(
-        [sys.executable, "-m", "navier_stokes_solver_tpu_torch.cli.unsteady", "--fused", "--quiet"] + CPU,
+        [sys.executable, "-m", "navier_stokes_solver_tpu_torch.cli.unsteady", "--output", "--quiet"] + CPU,
         cwd=ROOT, capture_output=True, text=True, timeout=300, env={**os.environ, "PYTHONPATH": ROOT},
     )
-    assert out.returncode != 0 and "A.D5b" in out.stderr and out.stdout == ""
+    assert out.returncode != 0 and "A.D6b" in out.stderr and out.stdout == ""
 
 
 def _direct(solver, opts):

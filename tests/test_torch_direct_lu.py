@@ -12,7 +12,10 @@ the CLI's ``--direct-lu``) against the JAX package, on the CPU.
   the structured 12x6 Q2/Q1 backend): Krylov counts within 1 per solve,
   drag rtol 1e-7, fields within 1e-7 of their magnitude.
 * Above ``DIRECT_LU_MAX_N`` unknowns the ``-p`` preconditioner applies, as
-  in the JAX package, and ``setup()`` says so.
+  in the JAX package, and ``setup()`` says so -- from the predicate that
+  decides, counting unknowns: at structured 156x20 Q3/Q2 (69,564 DoFs,
+  70,051 unknowns with the inactive nodes inside the cylinder) the message
+  appears, at 155x20 (69,603 unknowns) it does not (setup only).
 """
 
 import jax
@@ -215,8 +218,19 @@ def test_ineligible_system_takes_the_p_preconditioner(case, monkeypatch, capsys)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert make_krylov_lo(1, tctx, cfg=cfg_lu) is not None
-    monkeypatch.setattr("navier_stokes_solver_tpu_torch.api.base.DIRECT_LU_MAX_N", 100)
+    n = tblocks._n_unknowns(td)
     NSSolverStationary(SolverOptions(mesh_size=MESH, read_mesh_from_file=True, precond_config=cfg_lu,
                                      device="cpu")).setup()
     out = capsys.readouterr().out
-    assert "exceed DIRECT_LU_MAX_N = 100" in out and "blockDiagonal" in out
+    assert f"{n} unknowns exceed DIRECT_LU_MAX_N = {n - 1}" in out and "blockDiagonal" in out
+
+
+@pytest.mark.parametrize("mesh", [(156, 20), (155, 20)], ids=["156x20", "155x20"])
+def test_fallback_message_comes_from_the_predicate(mesh, capsys):
+    s = NSSolver(SolverOptions(mesh_size=mesh, precond_config=PrecondConfig(direct_lu=True), device="cpu")).setup()
+    out = capsys.readouterr().out
+    n = tblocks._n_unknowns(s.disc)
+    eligible = tblocks.direct_lu_eligible(s.disc)
+    assert eligible == (mesh == (155, 20)) and s.n_dofs <= tblocks.DIRECT_LU_MAX_N
+    said = f"direct LU: {n} unknowns exceed DIRECT_LU_MAX_N = {tblocks.DIRECT_LU_MAX_N}"
+    assert (said in out) == (not eligible) and out.count("direct LU:") == (not eligible)

@@ -98,7 +98,7 @@ def test_options_select_the_simplex_backend():
     assert s.n_dofs == 2 * s.disc.n_nodes_v + s.disc.n_nodes_p == 1269
     u, p = s.fields()
     assert u.shape == (2, s.disc.n_nodes_v) and p.shape == (s.disc.n_nodes_p,)
-    for kw, item in ((dict(dd=(2, 1)), "A.D9"), (dict(fused=True), "A.D5b"), (dict(write_output=True), "A.D6b")):
+    for kw, item in ((dict(dd=(2, 1)), "A.D9"), (dict(write_output=True), "A.D6b")):
         with pytest.raises(NotImplementedError, match=item):
             NSSolverStationary(SolverOptions(**BASE, **kw, device="cpu"))
     bare = NSSolverStationary(SolverOptions(**BASE, multigrid=False, dense_schur=False, device="cpu")).setup()

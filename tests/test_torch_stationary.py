@@ -134,14 +134,17 @@ OUTSIDE_THE_SLICE = [  # (option, ROADMAP item the message must name)
     (dict(geometry="cavity"), "A.D6b"),
     (dict(dd=(2, 1)), "A.D9"),
     (dict(write_output=True), "A.D6b"),
-    (dict(fused=True), "A.D5b"),
 ]
 
 
 def test_options_outside_the_slice_raise():
+    """... and ``fused=True``, which the stationary solver ignores, as the
+    JAX package's does."""
     for kw, match in OUTSIDE_THE_SLICE:
         with pytest.raises(NotImplementedError, match=match):
             NSSolverStationary(SolverOptions(**{**BASE, **kw}, device="cpu"))
+    assert NSSolverStationary(SolverOptions(**BASE, fused=True, device="cpu")).options.fused
+    assert JSolver(JOptions(**BASE, fused=True)).options.fused
 
 
 def test_options_need_an_explicit_device():

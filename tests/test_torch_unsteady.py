@@ -176,13 +176,17 @@ def test_lift_drag_files_match_the_jax_package(tmp_path):
 
 OUTSIDE_THE_PATH = [  # (option, ROADMAP item the message must name)
     (dict(write_output=True), "A.D6b"),
-    (dict(fused=True), "A.D5b"),
 ]
 
 
 def test_unported_options_raise():
+    """Unported options raise naming their ROADMAP item; ``fused`` is
+    accepted, and ``solve_fused`` refuses Re < 1 as the JAX package does
+    (construct only)."""
     for kw, match in OUTSIDE_THE_PATH:
         with pytest.raises(NotImplementedError, match=match):
             NSSolver(SolverOptions(**{**BASE, **kw}, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A.D5b"):
-        NSSolver(SolverOptions(**BASE, device="cpu")).solve_fused()
+    assert NSSolver(SolverOptions(**BASE, fused=True, device="cpu")).options.fused
+    for cls, opts in ((NSSolver, SolverOptions(**{**BASE, "Re": 0.5}, device="cpu")), (JSolver, JOptions(**{**BASE, "Re": 0.5}))):
+        with pytest.raises(ValueError, match="Re >= 1"):
+            cls(opts).solve_fused()
