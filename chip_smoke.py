@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Phases (each raises on failure; none catches another's).  They run in this
-order, except that phase 19 runs right after phase 10 (on its solver), phase
-8 after phase 19, and phases 8, 12, 13, 14 and 18 together after it: the CPU
-sides of the card-vs-CPU phases (8, 12, 14, 18) run in three spawned worker
-processes meanwhile (18's when the first is free), which are joined before
-phase 15 -- so the timed paths before and after them have the host to
-themselves; phase 20 runs after phase 16:
+order, except that phase 21 runs right after phase 4, phase 19 right after
+phase 10 (on its solver), phase 23 after phase 19, phase 8 after phase 23,
+and phases 8, 12, 13, 14, 18 and 22 together after it: the CPU sides of the
+card-vs-CPU phases (8, 12, 14, 18, 22) run in three spawned worker
+processes meanwhile (18's and 22's when a worker is free), which are
+joined before phase 15 -- so the timed paths before and after them have
+the host to themselves; phase 20 runs after phase 16:
 
   1. device   -- require CUDA; print the card (nvidia-smi name and power
                 limit) and the torch / CUDA versions;
@@ -143,12 +144,46 @@ themselves; phase 20 runs after phase 16:
                 ``CONFIG3_LU_STEPS`` steps: per-step walls, Newton iterations,
                 outers, residuals (each <= 1e-9), factorizations; the last
                 drag within rtol 1e-5 of the 800-step record (a fused run);
- 21. report   -- one JSON line of per-kernel results (launches from phase
+ 21. ensemble-kernels -- both kernels with the member axis at every
+                level of BASELINE config 5's multigrid chain (60x40 Q2/Q1
+                and its coarse levels, B = 64), f32 and f64, both regimes:
+                each batched launch against its plain version (phase 3's
+                tolerances) and, bit for bit, against B unbatched launches
+                on the members' operands and against itself on a permuted
+                lattice layout; the 32-bit index check over the batched
+                operands; then, at 60x40, phase 4's timings of the batched
+                launch (f32), with the library call's (a batched matmul of
+                the per-member Stokes element matrices; ``index_add_`` over
+                all members) and the bound (phase 4's reckoning over B
+                members, the operands they share counted once);
+ 22. ensemble-check -- a small ensemble (16x8 Q2/Q1, B = 3, Re 20/60/100,
+                two steps, all-f64, tangent solves capped at 20) on the
+                card against the CPU: per step and member the Newton and
+                Krylov counts within 1, drag and lift rtol 1e-7, fields 1e-6
+                of their magnitude.  The CPU side runs in a worker process;
+ 23. ensemble-main -- BASELINE config 5 at full width through
+                ``ensemble.make_ensemble_step``: 60x40 Q2/Q1 (22,103 DoFs
+                per member), B = 64, Re 20..100, dt 0.01, tol 1e-9,
+                ``newton_max`` 3, ``krylov_maxiter`` 200, Cahouet-Chabard
+                with one Lp V-cycle, f32 preconditioner: one warm-up step
+                (the inlet lift) and ``ENSEMBLE_STEPS`` (two) timed steps --
+                per-step walls, member-steps/s, per-member Newton
+                iterations, Krylov totals and final residuals (each member
+                at or under 1e-9, or at the Newton cap, listed), finite drag
+                and lift for every member, launches of both kernels (counts
+                zeroed just before, read just after); then the B = 1
+                control (member B//2's state after the warm-up, stepped as
+                many times by the unbatched step) and
+                ``batch_efficiency_vs_single`` = t_1 B / t_B, each beside
+                the card's name and power limit; then phase 7's profile of
+                one outer iteration of the batched tangent solve;
+ 24. report   -- one JSON line of per-kernel results (launches from phase
                 11 and times at its finest level, 100x33 Stokes, with every
-                path's launches -- the fused 300x100 path's among them, 0 on
-                the simplex paths, which run no hand-written kernel -- and
-                every shape's times beside them), the nvidia-smi line,
-                then the final ``{"ok": true, "device": ...}`` line.
+                path's launches -- the fused 300x100 path's and the
+                ensemble's among them, 0 on the simplex paths, which run no
+                hand-written kernel -- and every shape's times beside them,
+                the batched launches' included), the nvidia-smi line, then
+                the final ``{"ok": true, "device": ...}`` line.
 
 If the script outgrows its time budget, depth is cut, in this order: the
 stationary bench solve to one run (``SOLVES``), then the unsteady run to
@@ -158,8 +193,9 @@ unsteady card-only entry -- all four taken: the whole script took 1,040.8 s
 of its 1,200 s on a slow card without the last three -- then fused-main to
 one step (``FUSED_MAIN_STEPS``; its checkpoint resume is still the one
 from phase 9's state, and fused-check keeps its own round trip) -- never a
-mesh, config3's three steps, the simplex check, the fused check or the
-unsteady check's second step.  The cuts are printed.
+mesh, config3's three steps, the simplex check, the fused check, the
+unsteady check's second step, the ensemble's B = 64 or its two timed
+steps.  The cuts are printed.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -291,6 +327,23 @@ FUSED_CHECK = [
 ]
 # fused-main: fused steps after phase 9's host step, on its solver and state
 FUSED_MAIN_STEPS = 2
+# BASELINE config 5 (BASELINE.json configs[4]): the batched Reynolds-sweep
+# ensemble at scripts/ensemble_bench.py's defaults -- 60x40 Q2/Q1 (22,103
+# DoFs per member), B = 64, Re 20..100 (linspace), dt 0.01, tol 1e-9,
+# newton_max 3, krylov_maxiter 200, FGMRES + blockTriangular, Cahouet-Chabard
+# with one Lp V-cycle, f32 preconditioner
+ENSEMBLE_MESH = (60, 40)
+ENSEMBLE_DOFS = 22_103
+ENSEMBLE_B = 64
+ENSEMBLE_RE = (20.0, 100.0)
+ENSEMBLE_STEPS = 2  # timed steps after the warm-up (never cut below 2)
+ENSEMBLE_NEWTON_MAX = 3
+ENSEMBLE_METRIC = "ensemble_sweep_60x40_B64_tol1e-09_schurcahouet"  # PERF_NORTHSTAR.json: the JAX package's TPU record
+# ensemble-check, card vs CPU, all-f64: 16x8 Q2/Q1, B = 3 (Re 20, 60, 100),
+# two steps, newton_max 3, tangent solves capped at 20 (tests/test_torch_ensemble.py)
+ENSEMBLE_CHECK_MESH = (16, 8)
+ENSEMBLE_CHECK_RE = (20.0, 60.0, 100.0)
+ENSEMBLE_CHECK_STEPS = 2
 SOURCES = {
     "cell_apply_F": "navier_stokes_solver_tpu_torch/csrc/cell_apply_f.cu",
     "scatter_v_bc": "navier_stokes_solver_tpu_torch/csrc/scatter_v.cu",
@@ -404,31 +457,38 @@ def bound(nbytes, flops):
     return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
-def cell_apply_cost(disc, stokes):
+def cell_apply_cost(disc, stokes, batch=None):
     """Bytes (each input read once, y written once) and flops of one
-    ``cell_apply_F_lattice`` call."""
+    ``cell_apply_F_lattice`` call; ``batch``: B members in one launch --
+    the lattice, the linearization, the output and the viscosities are per
+    member, ``cell_w`` and the tables are read once for all of them."""
     n_q, n_v = disc.cell_tabs.shape[1:]
     C = disc.nx * disc.ny
     NY, NX = disc.NV
-    words = 2 * NY * NX + n_q * C + 3 * n_q * n_v + 2 * n_v * C
+    member = 2 * NY * NX + 2 * n_v * C
+    shared = n_q * C + 3 * n_q * n_v
     if stokes:
         flops = C * (16 * n_q * n_v + 8 * n_q)
     else:
-        words += 6 * n_q * C
+        member += 6 * n_q * C
         flops = C * (24 * n_q * n_v + 28 * n_q)
-    return words * disc.cell_w.element_size(), flops
+    words = shared + member if batch is None else shared + batch * (member + 1)
+    return words * disc.cell_w.element_size(), flops * (batch or 1)
 
 
-def scatter_cost(disc, with_bc):
-    """Bytes and flops of one ``scatter_v_bc`` call."""
+def scatter_cost(disc, with_bc, batch=None):
+    """Bytes and flops of one ``scatter_v_bc`` call; ``batch``: B members
+    in one launch -- the local contributions, the output, x and the
+    diagonal are per member, the two bool masks are read once."""
     n_v = disc.cell_tabs.shape[2]
     NY, NX = disc.NV
-    words = 2 * n_v * disc.nx * disc.ny + 2 * NY * NX
+    member = 2 * n_v * disc.nx * disc.ny + 2 * NY * NX
     nbytes = 0
     if with_bc:
-        words += 4 * NY * NX  # x, diag
+        member += 4 * NY * NX  # x, diag
         nbytes = 2 * NY * NX  # the two bool masks
-    return words * disc.cell_w.element_size() + nbytes, 2 * n_v * disc.nx * disc.ny + 2 * NY * NX
+    n = batch or 1
+    return n * member * disc.cell_w.element_size() + nbytes, n * (2 * n_v * disc.nx * disc.ny + 2 * NY * NX)
 
 
 # ---------------------------------------------------------------------------
@@ -743,6 +803,16 @@ def outer_profile(s, stokes, iters=OUTER_WINDOW):
             basis=o.krylov_basis,
         )
 
+    return profile_solve(solve, iters)
+
+
+def profile_solve(solve, iters=OUTER_WINDOW):
+    """Per outer iteration of ``solve(n)`` (a tangent solve of ``n``
+    iterations at tolerance 0): profiler windows of ``n`` = 1 and 1 +
+    ``iters``, differenced.  An ensemble's solve counts its iterations per
+    member: the windows take the largest."""
+    import numpy as np
+
     ours = {"cell_apply_F": "cell_apply_f_kernel", "scatter_v_bc": "scatter_v_kernel"}
     win, by_name = {}, {}
     for n in (1, 1 + iters):
@@ -751,7 +821,7 @@ def outer_profile(s, stokes, iters=OUTER_WINDOW):
         for e in ev:
             by_name[n][e.name] = by_name[n].get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         win[n] = {
-            "iters": info.iters,
+            "iters": int(np.max(info.iters)),
             "kernels": len(ev),
             "device_ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3,
             "wall_ms": 1e3 * wall,
@@ -1180,7 +1250,8 @@ def simplex_tangent_run(device, dense, n):
 
 def cpu_job(name):
     """The CPU side of one card-vs-CPU phase -- "unsteady-check", "matrix",
-    "simplex-check" or "fused-check" -- as plain data, for a worker process."""
+    "simplex-check", "fused-check" or "ensemble-check" -- as plain data, for
+    a worker process."""
     import torch
 
     torch.set_num_threads(CPU_SIDE_THREADS)
@@ -1196,6 +1267,8 @@ def cpu_job(name):
         )
     if name == "fused-check":
         return [fused_run(cpu, fields, kw) for _, fields, kw in FUSED_CHECK]
+    if name == "ensemble-check":
+        return ensemble_check_run(cpu)
     raise ValueError(f"no CPU side named {name!r}")
 
 
@@ -1509,6 +1582,346 @@ def phase_config3_lu_fused(device):
 
 
 # ---------------------------------------------------------------------------
+# 21. ensemble-kernels, 22. ensemble-check, 23. ensemble-main
+# ---------------------------------------------------------------------------
+
+
+def ensemble_viscosities(disc, res, batch):
+    """[B] viscosities 1 / linspace(Re_min, Re_max, B) in the disc's dtype
+    on its device (``scripts/ensemble_bench.py``'s sweep)."""
+    import numpy as np
+
+    from navier_stokes_solver_tpu_torch.ensemble.sweep import as_viscosities
+
+    return as_viscosities(disc, 1.0 / np.linspace(res[0], res[-1], batch))
+
+
+def ensemble_disc(device, mesh, dtype):
+    from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry, make_fe_space
+    from navier_stokes_solver_tpu_torch.ops import make_disc
+    from navier_stokes_solver_tpu_torch.precond import attach_mg
+
+    return attach_mg(make_disc(make_fe_space(make_channel_geometry(*mesh), 2, 1), dtype, device))
+
+
+def ensemble_kernel_case(device, mesh, dtype, seed=0):
+    """Config 5's kernel operands at one level of its multigrid chain, made
+    from a numpy seed: ``(disc, nus, linq, x_u, bc_diag)`` with B = 64
+    members -- lattices [B, 2, NY, NX], the linearization [n_q, B, ...],
+    viscosities [B]."""
+    import numpy as np
+    import torch
+
+    from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry, make_fe_space
+    from navier_stokes_solver_tpu_torch.ops import Blocks, diag_F, eval_state, make_disc
+
+    disc = make_disc(make_fe_space(make_channel_geometry(*mesh), 2, 1), dtype, device)
+    nus = ensemble_viscosities(disc, ENSEMBLE_RE, ENSEMBLE_B)
+    rng = np.random.default_rng(seed)
+    put = lambda a: torch.as_tensor(a, device=device).to(dtype)
+    B = ENSEMBLE_B
+    x = put(rng.standard_normal((B, 2) + disc.NV))
+    st = Blocks(put(0.3 * rng.standard_normal((B, 2) + disc.NV)), put(rng.standard_normal((B,) + disc.NP)))
+    linq = eval_state(disc, st)
+    return disc, nus, linq, x, diag_F(disc, nus, KERNEL_INV_DT, linq, stokes=False)
+
+
+def ensemble_kernel_check(disc, nus, linq, x, bc, name, errs):
+    """One shape of phase 21's checks: the 32-bit index check over the
+    batched operands, each batched launch against its plain version and,
+    bit for bit, against B unbatched launches and the same launch on a
+    permuted lattice layout; the largest errors go into ``errs``."""
+    import torch
+
+    from navier_stokes_solver_tpu_torch.ops import LinearizationQ
+    from navier_stokes_solver_tpu_torch.ops.cell_kernel import cell_apply_F_lattice, cell_apply_F_lattice_plain
+    from navier_stokes_solver_tpu_torch.ops.lattice import lattice_view
+    from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
+
+    B, mx, my = x.shape[0], disc.nx, disc.ny
+    tol = KERNEL_TOL[name]
+    loc_shape = (disc.cell_tabs.shape[2], B, 2, my, mx)
+    offsets = {
+        "lattice view": max_offset(lattice_view(x, 2, my, mx)), "linq.gradu": max_offset(linq.gradu),
+        "output": max_offset(torch.empty(loc_shape, device="meta")), "lattice": max_offset(x),
+    }
+    print(f"[ensemble-kernels] {mx}x{my} Q2/Q1 B {B} {name}: largest element offsets {json.dumps(offsets)} (32-bit limit {INDEX_LIMIT})")
+    if max(offsets.values()) >= INDEX_LIMIT:
+        raise RuntimeError(f"a batched operand exceeds the kernels' 32-bit indexing: {offsets}")
+    # the layout a batched multigrid transfer's einsum may hand the kernels
+    x_perm = x.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+    members = [LinearizationQ(linq.u[:, b].contiguous(), linq.gradu[:, b].contiguous(), None) for b in range(B)]
+    nu_h = nus.tolist()
+    for stokes in (True, False):
+        tag = f"{mx}x{my} Q2/Q1 {name} B{B} {'stokes' if stokes else 'newton'}"
+        lq = None if stokes else linq
+        want = cell_apply_F_lattice_plain(disc, nus, KERNEL_INV_DT, lq, x, stokes=stokes)
+        got = cell_apply_F_lattice(disc, nus, KERNEL_INV_DT, lq, x, stokes=stokes)
+        got_perm = cell_apply_F_lattice(disc, nus, KERNEL_INV_DT, lq, x_perm, stokes=stokes)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"cell_apply_F (batched): non-finite output at {tag}")
+        if not torch.equal(got, got_perm):
+            raise RuntimeError(f"cell_apply_F (batched): a permuted lattice layout changes the result at {tag}")
+        err = (got - want).abs()
+        bad = int((err > tol + tol * want.abs()).sum())
+        e = float(err.max())
+        errs["cell_apply_F"] = max(errs["cell_apply_F"], e)
+        same = sum(
+            torch.equal(got[:, b], cell_apply_F_lattice(
+                disc, nu_h[b], KERNEL_INV_DT, None if stokes else members[b], x[b], stokes=stokes))
+            for b in range(B)
+        )
+        print(f"[ensemble-kernels] cell_apply_F (batched) {tag}: max|kernel-plain| {e:.3e} (max|plain| {float(want.abs().max()):.3e}), {bad} entries outside rtol=atol={tol:g}; members bit-identical to their unbatched launch {same} of {B}")
+        if bad:
+            raise RuntimeError(f"cell_apply_F (batched) disagrees with its plain version at {tag}")
+        if same != B:
+            raise RuntimeError(f"cell_apply_F (batched): {B - same} members differ from their unbatched launch at {tag}")
+        for b_, xx, what in ((None, x, "raw"), (bc, x, "bc"), (bc, x_perm, "bc, permuted x")):
+            g = scatter_v_bc(disc, want, bc_diag=b_, x_u=xx)
+            w = scatter_v_bc_plain(disc, want, bc_diag=b_, x_u=xx)
+            e = float((g - w).abs().max())
+            errs["scatter_v_bc"] = max(errs["scatter_v_bc"], e)
+            same = sum(
+                torch.equal(g[b], scatter_v_bc(disc, want[:, b].contiguous(), bc_diag=None if b_ is None else b_[b], x_u=xx[b].contiguous()))
+                for b in range(B)
+            )
+            print(f"[ensemble-kernels] scatter_v_bc (batched, {what}) {tag}: max|kernel-plain| {e!r}, bitwise equal {torch.equal(g, w)}; members bit-identical to their unbatched launch {same} of {B}")
+            if e != 0.0 or not torch.equal(g, w) or same != B:
+                raise RuntimeError(f"scatter_v_bc (batched, {what}) is not bit-identical at {tag}")
+
+
+def phase_ensemble_kernels(device):
+    """Both kernels with the member axis at every level of BASELINE config
+    5's multigrid chain (60x40 Q2/Q1 down to its coarsest level, B = 64),
+    f32 and f64, both regimes: ``ensemble_kernel_check``.  Then, at 60x40
+    f32, phase 4's timings of the batched launch: device time,
+    host-inclusive time, the plain version's, the library call's (a
+    batched matmul of the per-member Stokes element matrices;
+    ``index_add_`` of all members) and the bound (``cell_apply_cost`` /
+    ``scatter_cost`` over B members: the shared operands counted once).
+    Returns ``(max errors, {kernel: {tag: record}})``."""
+    import torch
+
+    from navier_stokes_solver_tpu_torch.ops.cell_kernel import cell_apply_F_lattice, cell_apply_F_lattice_plain
+    from navier_stokes_solver_tpu_torch.ops.lattice import _gather_v, lattice_view
+    from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
+
+    B, (mx, my) = ENSEMBLE_B, ENSEMBLE_MESH
+    errs = {"cell_apply_F": 0.0, "scatter_v_bc": 0.0}
+    times = {"cell_apply_F": {}, "scatter_v_bc": {}}
+    from navier_stokes_solver_tpu_torch.precond.mg import mg_level_shapes
+
+    levels = mg_level_shapes(ensemble_disc(device, ENSEMBLE_MESH, torch.float32))
+    print(f"[ensemble-kernels] multigrid levels of the ensemble disc: {levels}")
+    for mesh in levels:
+        for dtype in (torch.float32, torch.float64):
+            ensemble_kernel_check(*ensemble_kernel_case(device, mesh, dtype), str(dtype)[6:], errs)
+    disc, nus, linq, x, bc = ensemble_kernel_case(device, ENSEMBLE_MESH, torch.float32)
+    for stokes in (True, False):
+        lq = None if stokes else linq
+        args = (disc, nus, KERNEL_INV_DT, lq, x)
+        rec = {
+            "ms": device_ms(lambda: cell_apply_F_lattice(*args, stokes=stokes)),
+            "host_ms": host_ms(lambda: cell_apply_F_lattice(*args, stokes=stokes)),
+            "plain_ms": device_ms(lambda: cell_apply_F_lattice_plain(*args, stokes=stokes), PLAIN_CALLS),
+            "library_ms": None,
+        }
+        if stokes:
+            # each member's Stokes element matrix nu_b K applied to its
+            # x_loc [n_v, 2C]: one batched matmul (mask left out)
+            _, Dx, Dy = disc.cell_tabs
+            K = Dx.T @ (disc.w_q[:, None] * Dx) + Dy.T @ (disc.w_q[:, None] * Dy)
+            Kb = nus[:, None, None] * K
+            xl = _gather_v(disc, x).reshape(K.shape[0], B, -1).transpose(0, 1).contiguous()
+            rec["library_ms"] = device_ms(lambda: torch.matmul(Kb, xl))
+        rec["bound_ms"], rec["bound_by"] = bound(*cell_apply_cost(disc, stokes, B))
+        tag = f"{mx}x{my} Q2/Q1 float32 B{B} {'stokes' if stokes else 'newton'}"
+        times["cell_apply_F"][tag] = rec
+        print(f"[time] cell_apply_F {tag}: {json.dumps(rec)}")
+    loc = cell_apply_F_lattice(disc, nus, KERNEL_INV_DT, linq, x, stokes=False)
+    NY, NX = disc.NV
+    idx = lattice_view(torch.arange(B * 2 * NY * NX, device=device).view(B, 2, NY, NX), 2, my, mx).reshape(-1)
+    acc = torch.zeros(B * 2 * NY * NX, dtype=torch.float32, device=device)
+    src = loc.reshape(-1)
+    rec = {
+        "ms": device_ms(lambda: scatter_v_bc(disc, loc, bc_diag=bc, x_u=x)),
+        "host_ms": host_ms(lambda: scatter_v_bc(disc, loc, bc_diag=bc, x_u=x)),
+        "plain_ms": device_ms(lambda: scatter_v_bc_plain(disc, loc, bc_diag=bc, x_u=x), PLAIN_CALLS),
+        "library_ms": device_ms(lambda: acc.index_add_(0, idx, src)),
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(*scatter_cost(disc, True, B))
+    tag = f"{mx}x{my} Q2/Q1 float32 B{B} bc"
+    times["scatter_v_bc"][tag] = rec
+    print(f"[time] scatter_v_bc {tag}: {json.dumps(rec)}")
+    return errs, times
+
+
+def ensemble_check_run(device):
+    """The ensemble check's run on one device, as plain data: per-step
+    history [T, B], host fields [B, ...], wall."""
+    import torch
+
+    from navier_stokes_solver_tpu_torch.ensemble import run_sweep
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    disc = ensemble_disc(device, ENSEMBLE_CHECK_MESH, torch.float64)
+    nus = [1.0 / re for re in ENSEMBLE_CHECK_RE]
+    cfg = PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1, vmult_dtype=None, mg_dtype=None)
+    t0 = time.perf_counter()
+    final, hist = run_sweep(disc, nus, UNSTEADY_DT, ENSEMBLE_CHECK_STEPS, precond_cfg=cfg, solver_type=1,
+                            prec_type=1, tol=1e-9, newton_max=3, krylov_maxiter=20)
+    return {"hist": {k: v.cpu().numpy() for k, v in hist.items()},
+            "fields": tuple(t.cpu().numpy() for t in final.solution), "wall_s": time.perf_counter() - t0}
+
+
+def phase_ensemble_check(device, cpu_side=None):
+    """A small ensemble on the card against the same on the CPU
+    (``cpu_side``: the future of ``cpu_job("ensemble-check")``; by default
+    one worker process started here): per step and member the Newton and
+    Krylov counts within 1, drag and lift rtol 1e-7 (the lift floored at
+    1e-7 of the drag), each member's fields within 1e-6 of its magnitude."""
+    import numpy as np
+
+    if cpu_side is None:
+        with cpu_pool(1) as pool:
+            return phase_ensemble_check(device, pool.submit(cpu_job, "ensemble-check"))
+    g = ensemble_check_run(device)
+    c = cpu_side.result()
+    mx, my = ENSEMBLE_CHECK_MESH
+    where = f"{mx}x{my} Q2/Q1, Re {list(ENSEMBLE_CHECK_RE)}, {ENSEMBLE_CHECK_STEPS} steps"
+    print(f"[ensemble-check] {where}: walls card {g['wall_s']:.2f} s, CPU {c['wall_s']:.2f} s")
+    for k in ("newton_iters", "krylov_iters"):
+        a, b = g["hist"][k], c["hist"][k]
+        print(f"[ensemble-check] {k} per step and member: card {a.tolist()}, CPU {b.tolist()}")
+        if a.shape != b.shape or np.abs(a.astype(int) - b.astype(int)).max() > 1:
+            raise RuntimeError(f"ensemble-check: {k} differ by more than 1")
+    dg, dc, lg, lc = g["hist"]["drag"], c["hist"]["drag"], g["hist"]["lift"], c["hist"]["lift"]
+    print(f"[ensemble-check] drag card {dg.tolist()} CPU {dc.tolist()}; max rel diff {float((np.abs(dg - dc) / np.abs(dc)).max()):.3e}; lift max |diff| {float(np.abs(lg - lc).max()):.3e}")
+    if not (np.all(np.abs(dg - dc) <= 1e-7 * np.abs(dc)) and np.all(np.abs(lg - lc) <= 1e-7 * np.maximum(np.abs(lc), np.abs(dc)))):
+        raise RuntimeError("ensemble-check: drag/lift outside rtol 1e-7")
+    for field, a, b in zip(("velocity", "pressure"), g["fields"], c["fields"]):
+        for m in range(a.shape[0]):
+            err, scale = float(np.abs(a[m] - b[m]).max()), float(np.abs(b[m]).max())
+            print(f"[ensemble-check] member {m} {field} max|card - CPU| {err:.3e} (max|CPU| {scale:.3e})")
+            if not err <= FIELD_GATE * scale:
+                raise RuntimeError(f"ensemble-check: member {m} {field} differs by {err} > {FIELD_GATE} x {scale}")
+
+
+def ensemble_outer_profile(disc, nus, ts, cfg, dt):
+    """Phase 7's per-outer-iteration profile of the tangent solve at the
+    state ``ts``: the batched one (all B members iterating) for [B] ``nus``,
+    the unbatched one for a number."""
+    import torch
+
+    from navier_stokes_solver_tpu_torch.api import kernels
+    from navier_stokes_solver_tpu_torch.ops import Blocks
+
+    rhs, _ = kernels.assemble_kernel(disc, nus, 1.0 / dt, ts.solution, ts.solution.u, 0.0, stokes=False)
+    zero = Blocks(torch.zeros_like(ts.solution.u), torch.zeros_like(ts.solution.p))
+
+    def solve(n):
+        return kernels.solve_kernel(
+            disc, nus, 1.0 / dt, ts.solution, rhs, zero, 0.0, 0.0, stokes=False, solver_type=1,
+            prec_type=1, variant="unsteady", maxiter=n, project_x0=False, precond_cfg=cfg, basis=30,
+        )
+
+    return profile_solve(solve)
+
+
+def phase_ensemble_main(device):
+    """BASELINE config 5 at full width: ``ENSEMBLE_B`` members, one warm-up
+    step (the inlet lift), then ``ENSEMBLE_STEPS`` timed steps of the
+    batched fused step (counts zeroed just before the warm-up, read after
+    the timed steps); then the B = 1 control -- member B//2's state after
+    the warm-up, stepped as many times by the unbatched step -- and one
+    profiled outer iteration of the batched tangent solve."""
+    import numpy as np
+    import torch
+
+    from navier_stokes_solver_tpu_torch.ensemble import initial_ensemble_state, make_ensemble_step
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+    from navier_stokes_solver_tpu_torch.timeloop import TimeState, make_time_step
+
+    card = nvidia_smi()
+    B, (mx, my), dt = ENSEMBLE_B, ENSEMBLE_MESH, UNSTEADY_DT
+    disc = ensemble_disc(device, ENSEMBLE_MESH, torch.float64)
+    n_dofs = 2 * int(np.prod(disc.NV)) + int(np.prod(disc.NP))
+    if n_dofs != ENSEMBLE_DOFS:
+        raise RuntimeError(f"ensemble-main: {n_dofs} DoFs per member, not {ENSEMBLE_DOFS}")
+    nus = ensemble_viscosities(disc, ENSEMBLE_RE, B)
+    cfg = PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1)
+    kw = dict(solver_type=1, prec_type=1, tol=1e-9, newton_max=ENSEMBLE_NEWTON_MAX, krylov_maxiter=200,
+              precond_cfg=cfg)
+    step = make_ensemble_step(disc, **kw)
+    ts = initial_ensemble_state(disc, B)
+    reset_counts()
+    steps, warm = [], None
+    for k in range(1 + ENSEMBLE_STEPS):
+        t0 = time.perf_counter()
+        ts = step(ts, nus, dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if k == 0:
+            warm = ts
+        st = ts.stats
+        rec = {
+            "step": int(ts.step[0]), "timed": k > 0, "wall_s": wall,
+            "newton_iters": st.newton_iters.tolist(), "krylov_iters": st.krylov_iters.tolist(),
+            "final_residual": st.final_residual.tolist(), "drag": ts.drag.tolist(), "lift": ts.lift.tolist(),
+        }
+        steps.append(rec)
+        print(f"[ensemble-main] step {rec['step']} ({'timed' if k else 'warm-up, the inlet lift'}): wall {wall!r} s; {json.dumps({k_: rec[k_] for k_ in ('newton_iters', 'krylov_iters', 'final_residual')})}")
+    counts = read_counts()
+    timed = [r["wall_s"] for r in steps[1:]]
+    t_b = statistics.median(timed)
+    rate = B / t_b
+    for rec in steps:
+        n, res = np.asarray(rec["newton_iters"]), np.asarray(rec["final_residual"])
+        capped = [int(m) for m in np.flatnonzero((n >= ENSEMBLE_NEWTON_MAX) & (res > 1e-9))]
+        on_tol = res <= 1e-9
+        print(f"[ensemble-main] step {rec['step']}: Newton stopped on tolerance (residual <= 1e-9) for {int(on_tol.sum())} of {B} members; at the cap ({ENSEMBLE_NEWTON_MAX}) above it: members {capped}; Krylov totals {int(np.min(rec['krylov_iters']))}-{int(np.max(rec['krylov_iters']))}, residuals {float(res.min()):.3e}-{float(res.max()):.3e}")
+        other = [int(m) for m in np.flatnonzero(~on_tol & (n < ENSEMBLE_NEWTON_MAX))]
+        if other:
+            raise RuntimeError(f"ensemble-main: step {rec['step']}: members {other} stopped above the Newton tolerance before the cap")
+        if not (np.isfinite(rec["drag"]).all() and np.isfinite(rec["lift"]).all()):
+            raise RuntimeError(f"ensemble-main: step {rec['step']}: non-finite drag or lift")
+    u = ts.solution.u
+    if tuple(u.shape) != (B, 2) + disc.NV or not bool(torch.isfinite(u).all() and torch.isfinite(ts.solution.p).all()):
+        raise RuntimeError("ensemble-main: the final fields are not finite or have the wrong shape")
+    print(f"[ensemble-main] {mx}x{my} Q2/Q1, {n_dofs} DoFs per member, B {B} ({B * n_dofs} DoFs), Re {ENSEMBLE_RE[0]:g}..{ENSEMBLE_RE[1]:g}: timed step walls {timed} s, median {t_b!r} s, {rate!r} member-steps/s ({card}); launches {json.dumps(counts)}")
+    for name, c in counts.items():
+        if c["launches"] <= 0:
+            raise RuntimeError(f"the ensemble path never launched {name}")
+    # the B = 1 control: member B//2 after the warm-up, the same timed steps
+    m = B // 2
+    one = TimeState(*(type(f)(*(t[m].contiguous() for t in f)) if isinstance(f, tuple) else f[m].contiguous()
+                      for f in warm))
+    sstep = make_time_step(disc, **kw)
+    nu_m = float(nus[m])
+    walls, c_steps = [], []
+    for _ in range(ENSEMBLE_STEPS):
+        t0 = time.perf_counter()
+        one = sstep(one, nu_m, dt)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        c_steps.append((int(one.stats.newton_iters), int(one.stats.krylov_iters), float(one.drag)))
+    t_1 = statistics.median(walls)
+    eff = t_1 * B / t_b
+    batched_m = [(r["newton_iters"][m], r["krylov_iters"][m], r["drag"][m]) for r in steps[1:]]
+    print(f"[ensemble-main] B = 1 control (member {m}, Re {1.0 / nu_m:.6g}): step walls {walls} s, median {t_1!r} s; (Newton, Krylov, drag) per step {c_steps}, the batched member's {batched_m}; batch_efficiency_vs_single = t_1 B / t_B = {eff!r} ({card})")
+    per = ensemble_outer_profile(disc, nus, ts, cfg, dt)
+    print(f"[ensemble-outer] per outer iteration of the batched tangent solve (B {B}, profiled): {json.dumps(per)}")
+    per1 = ensemble_outer_profile(disc, nu_m, one, cfg, dt)
+    print(f"[ensemble-outer] per outer iteration of the B = 1 control's tangent solve (profiled): {json.dumps(per1)}")
+    print(f"[ensemble-outer] B = {B} against B = 1 per outer iteration: kernels x{per['kernels'] / per1['kernels']:.3f}, device ms x{per['device_ms'] / per1['device_ms']:.3f}, wall ms x{per['wall_ms'] / per1['wall_ms']:.3f}, readbacks x{per['readbacks'] / per1['readbacks']:.3f}")
+    ref = northstar(ENSEMBLE_METRIC)
+    print(f"[ensemble-main] the JAX package's record (PERF_NORTHSTAR.json, {ref['extra']['device']}, another chip): {ref['value']} member-steps/s, median step {ref['extra']['median_step_s']} s")
+    return {"counts": counts, "steps": steps, "median_step_s": t_b, "member_steps_per_s": rate,
+            "control_step_s": t_1, "batch_efficiency_vs_single": eff, "outer": per, "outer_single": per1}
+
+
+# ---------------------------------------------------------------------------
 # report
 # ---------------------------------------------------------------------------
 
@@ -1557,11 +1970,15 @@ def main():
         f"phase 12's unsteady card-only entry dropped; fused-main {FUSED_MAIN_STEPS} of 2 steps. Not cut: "
         f"unsteady-check steps {CHECK_STEPS}, config 1, matrix at {MATRIX_MESH[0]}x{MATRIX_MESH[1]}, simplex check at "
         f"-M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]}, fused check (3 and 2 steps), config3 its 3 steps, "
-        f"simplex-file one step"
+        f"simplex-file one step, ensemble-main B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps"
     )
     phase_build()
     errs = phase_check(device)
     times = phase_time(device)
+    ens_errs, ens_times = phase_ensemble_kernels(device)
+    for name in errs:
+        errs[name] = max(errs[name], ens_errs[name])
+        times[name].update(ens_times[name])
     phase_launches(device)
     s1, config1 = phase_config1(device)
     c1outer = phase_outer(s1, regimes=(True,), tag="config1-outer")
@@ -1581,18 +1998,22 @@ def main():
     print(f"[unsteady-main] per-step walls {[r['wall_s'] for r in unsteady['steps']]} s; outer iterations per step {[r['outer'] for r in unsteady['steps']]}; Newton regime per outer iteration: {uouter['newton']['kernels']!r} device kernels, {uouter['newton']['readbacks']!r} readbacks, busy {uouter['newton']['busy']:.4f}")
     fused_main = phase_fused_main(su)
     del su
+    ensemble = phase_ensemble_main(device)
+    print(f"[ensemble-main] {ensemble['member_steps_per_s']!r} member-steps/s, median step {ensemble['median_step_s']!r} s, B = 1 control {ensemble['control_step_s']!r} s, batch_efficiency_vs_single {ensemble['batch_efficiency_vs_single']!r}; per outer iteration {ensemble['outer']['kernels']!r} device kernels, {ensemble['outer']['device_ms']!r} device ms, {ensemble['outer']['wall_ms']!r} ms wall, {ensemble['outer']['readbacks']!r} readbacks, busy {ensemble['outer']['busy']:.4f}, our kernels {ensemble['outer']['ours_share']:.4f} of the device time")
     # the card-vs-CPU phases, after the timed paths before them and before
     # those after them: their CPU sides run meanwhile in worker processes
     t_checks = time.perf_counter()
     with cpu_pool(3) as pool:
-        # the fourth CPU side starts when the first worker is free
-        cpu = {name: pool.submit(cpu_job, name) for name in ("unsteady-check", "matrix", "simplex-check", "fused-check")}
+        # the fourth and fifth CPU sides start when a worker is free
+        cpu = {name: pool.submit(cpu_job, name)
+               for name in ("unsteady-check", "matrix", "simplex-check", "fused-check", "ensemble-check")}
         phase_unsteady_check(device, cpu["unsteady-check"])
         phase_matrix(device, cpu["matrix"])
         phase_profile(device)
         phase_simplex_check(device, cpu["simplex-check"])
         phase_fused_check(device, cpu["fused-check"])
-    print(f"[budget] card-vs-CPU phases (8, 12-14, 18) {time.perf_counter() - t_checks:.1f} s")
+        phase_ensemble_check(device, cpu["ensemble-check"])
+    print(f"[budget] card-vs-CPU phases (8, 12-14, 18, 22) {time.perf_counter() - t_checks:.1f} s")
     s3, config3 = phase_config3(device)
     c3outer = phase_outer(s3, regimes=(False,), tag="config3-outer")
     print(f"[config3] setup {config3['setup_s']:.3f} s, per-step walls {[r['wall_s'] for r in config3['steps']]} s, Newton iterations per step {[r['newton_iterations'] for r in config3['steps']]}, outers per step {[r['outer'] for r in config3['steps']]}; Newton regime per outer iteration: {c3outer['newton']['kernels']!r} device kernels, {c3outer['newton']['device_ms']!r} device ms, {c3outer['newton']['wall_ms']!r} ms wall, {c3outer['newton']['readbacks']!r} readbacks, busy {c3outer['newton']['busy']:.4f}")
@@ -1604,7 +2025,7 @@ def main():
         "stationary": runs[0]["counts"], "unsteady": unsteady["counts"], "unsteady_fused": fused_main["counts"],
         "config1_blockdiag": config1["counts"], "simplex_config3": config3["counts"],
         "simplex_config3_lu": config3_lu["counts"], "simplex_config3_lu_fused": config3_lu_fused["counts"],
-        "simplex_file": simplex_file["counts"],
+        "simplex_file": simplex_file["counts"], "ensemble": ensemble["counts"],
     }
     print(kernel_line(errs, times, config1["counts"], counts_by_path))
     print(f"[budget] script wall {time.perf_counter() - t_start:.1f} s")

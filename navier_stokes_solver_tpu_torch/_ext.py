@@ -94,18 +94,18 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()[0])
     lib.nstt_cell_apply_f.argtypes = [
         _c_int, _c_int, _c_int,  # is_f64, k, stokes
-        _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,  # x, 5 strides, lattice
+        _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,  # x, 6 strides, lattice
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # uq, guq, w, tabs
-        _c_double, _c_double,  # nu, inv_dt
-        _c_ptr, _c_int, _c_int, _c_ptr,  # y, nx, ny, stream
+        _c_double, _c_ptr, _c_double,  # nu, per-member nu (or null), inv_dt
+        _c_ptr, _c_int, _c_int, _c_int, _c_ptr,  # y, nx, ny, members, stream
     ]
     lib.nstt_cell_apply_f.restype = _c_int
     lib.nstt_scatter_v.argtypes = [
         _c_int, _c_int,  # is_f64, k
         _c_ptr, _c_int, _c_int,  # loc, nx, ny
-        _c_ptr, _c_int, _c_int, _c_int,  # x, its 3 strides
+        _c_ptr, _c_int, _c_int, _c_int, _c_int,  # x, its 4 strides
         _c_ptr, _c_ptr, _c_ptr,  # diag, dirichlet, active
-        _c_ptr, _c_ptr,  # out, stream
+        _c_ptr, _c_int, _c_ptr,  # out, members, stream
     ]
     lib.nstt_scatter_v.restype = _c_int
     lib.nstt_error_string.argtypes = [_c_int]

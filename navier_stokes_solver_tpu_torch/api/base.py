@@ -122,6 +122,25 @@ def state_from_numpy(u, p, *, dtype: torch.dtype, device) -> Blocks:
     return Blocks(u=put(u), p=put(p))
 
 
+def time_state_from_numpy(ts, *, dtype: torch.dtype, device):
+    """The port's ``timeloop.TimeState`` from one with the same fields whose
+    leaves are arrays -- e.g. the JAX package's (batched, an ensemble's, or
+    not) after ``jax.tree_util.tree_map(np.asarray, ts)``: the floating
+    leaves in ``dtype``, ``step`` and the counts int32, on ``device``."""
+    from navier_stokes_solver_tpu_torch.timeloop import StepStats, TimeState
+
+    put = lambda a, dt: torch.as_tensor(np.array(a), device=device).to(dt)
+    fl = lambda a: put(a, dtype)
+    i32 = lambda a: put(a, torch.int32)
+    st = ts.stats
+    return TimeState(
+        solution=state_from_numpy(ts.solution.u, ts.solution.p, dtype=dtype, device=device),
+        time=fl(ts.time), step=i32(ts.step), drag=fl(ts.drag), lift=fl(ts.lift),
+        stats=StepStats(newton_iters=i32(st.newton_iters), krylov_iters=i32(st.krylov_iters),
+                        final_residual=fl(st.final_residual)),
+    )
+
+
 class NSSolverBase:
     """Common lifecycle of the stationary and unsteady solvers."""
 

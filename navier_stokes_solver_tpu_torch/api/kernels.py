@@ -3,15 +3,18 @@
 The reference's outer control flow (continuation, Newton, line search)
 stays in the solver classes; these plain functions are the steps it calls:
 residual assembly, one tangent solve, the solution update and the lift/drag
-integral.
+integral.  Each also takes an ensemble's B members at once: ``nu`` a [B]
+tensor and state with a leading member axis (``ops.matfree``); norms and
+Krylov counts are then per member.
 """
 
 from __future__ import annotations
 
 import torch
 
-from navier_stokes_solver_tpu_torch.krylov import bicgstab, fgmres, gmres
+from navier_stokes_solver_tpu_torch.krylov import bicgstab, bnorm, fgmres, fgmres_batched, gmres, gmres_batched
 from navier_stokes_solver_tpu_torch.ops import Blocks, matfree, norm
+from navier_stokes_solver_tpu_torch.ops.blocks import is_batched
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
 from navier_stokes_solver_tpu_torch.precond import (
     LinearContext,
@@ -23,6 +26,7 @@ from navier_stokes_solver_tpu_torch.unstructured import ops as simplex_ops
 __all__ = ["assemble_kernel", "solve_kernel", "update_solution", "lift_drag_kernel"]
 
 _SOLVERS = {0: gmres, 1: fgmres, 2: bicgstab}
+_SOLVERS_BATCHED = {0: gmres_batched, 1: fgmres_batched}
 
 
 def _ops_for(disc):
@@ -36,7 +40,7 @@ def assemble_kernel(
 ):
     """Residual assembly + norm (the reference's assemble_system + l2_norm,
     NSSolver.cpp:700-707).  Returns ``(rhs, ||rhs||)``, the norm a 0-dim
-    tensor."""
+    tensor ([B] per-member norms for an ensemble's [B] ``nu``)."""
     ops = _ops_for(disc)
     linq = None if stokes else ops.eval_state(disc, st)
     dF = ops.diag_F(disc, nu, inv_dt, linq, stokes=stokes)
@@ -44,7 +48,7 @@ def assemble_kernel(
         disc, nu, inv_dt, st, u_old, dF, stokes=stokes, inlet_amp=inlet_amp,
         consistent=consistent,
     )
-    return rhs, norm(rhs)
+    return rhs, bnorm(rhs) if is_batched(nu) else norm(rhs)
 
 
 def solve_kernel(
@@ -65,6 +69,7 @@ def solve_kernel(
     project_x0: bool = True,
     precond_cfg=None,
     basis: int = 30,
+    active=None,
 ):
     """One tangent solve (NSSolver::solve_system, NSSolver.cpp:601-672).
 
@@ -74,7 +79,15 @@ def solve_kernel(
     previous solve.  ``project_x0=False`` skips that projection -- used by
     continuation chunks of one logical solve.  BiCGStab (``solver_type``
     2) takes no restart basis and no GMRES-IR cycles.
+
+    With an ensemble's [B] ``nu`` the B members are solved together
+    (``krylov.fgmres_batched``/``gmres_batched``): ``active`` ([B] bool,
+    host) selects the members that iterate -- the others keep
+    ``delta_prev`` -- and ``SolveInfo``'s fields are [B] arrays.  The
+    combinations that batch are checked once, where the ensemble's step is
+    built (``timeloop.make_batched_time_step``).
     """
+    batched = is_batched(nu)
     ops = _ops_for(disc)
     linq = None if stokes else ops.eval_state(disc, st)
     dF = ops.diag_F(disc, nu, inv_dt, linq, stokes=stokes)
@@ -94,6 +107,10 @@ def solve_kernel(
                 u=torch.where(disc.u_active, x0.u, 0.0),
                 p=torch.where(disc.p_active, x0.p, 0.0),
             )
+    if batched:
+        return _SOLVERS_BATCHED[solver_type](
+            A, rhs, x0, tol=tol, maxiter=maxiter, M=M, basis=basis, active=active
+        )
     kw = {}
     if solver_type != 2:
         kw = dict(basis=basis, lo=make_krylov_lo(

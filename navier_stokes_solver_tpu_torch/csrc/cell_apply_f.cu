@@ -19,12 +19,23 @@
 // view reads the lattice in place, and neighbouring cells share their edge
 // nodes; on gathered DoFs x_loc [n_v, 2, ny, nx] they do not.
 //
-// Other layouts (C = ny * nx cells, the contiguous axis):
-//   y     [n_v, 2, C]      local DoF m, component, cell
-//   uq    [n_q, 2, C]      u_k at the quadrature points
-//   guq   [n_q, 2, 2, C]   grad u_k: component, derivative direction
-//   w     [n_q, C]
-//   tabs  [3, n_q, n_v]    P, d/dx (scaled by 1/hx), d/dy (scaled by 1/hy)
+// Other layouts (C = ny * nx cells, the contiguous axis; B members):
+//   y     [n_v, B, 2, C]      local DoF m, member, component, cell
+//   uq    [n_q, B, 2, C]      u_k at the quadrature points
+//   guq   [n_q, B, 2, 2, C]   grad u_k: component, derivative direction
+//   w     [n_q, C]            shared by the members
+//   tabs  [3, n_q, n_v]       P, d/dx (scaled by 1/hx), d/dy (scaled by 1/hy)
+//   nu_b  [B] or null         per-member viscosity; null: the scalar nu
+//
+// Member axis.  An ensemble (ensemble/sweep.py) advances B members, each
+// with its own viscosity, through one launch: the member is blockIdx.y, and
+// the input view gains a member stride.  A member's arithmetic is that of
+// an unbatched launch on its operands, in the same order, so member b of a
+// batched launch equals the unbatched launch bit for bit.  The viscosity
+// comes through a device pointer, so a batched launch reads nothing back to
+// the host.  The member indexing is a template parameter: an unbatched
+// launch (B = 1, nu by value) runs the code without it, which the member
+// arithmetic made 1-5% slower at 300x100 (H100; PERF.md).
 //
 // Bound.  At 100x70 f32 in the Newton regime one call reads the lattice
 // (508 KB), u_k, grad u_k and w (3.1 MB) and writes y (896 KB): ~4.5 MB,
@@ -71,8 +82,8 @@ namespace {
 
 constexpr int kMaxTile = 20;  // cells per block, at most
 
-struct View {  // element strides of the [k+1, k+1, 2, ny, nx] input view
-  int a, b, comp, iy, ix;
+struct View {  // element strides of the [k+1, k+1, B, 2, ny, nx] input view
+  int a, b, m, comp, iy, ix;
 };
 
 // Arithmetic rounded exactly as written: nvcc's default contraction
@@ -93,13 +104,13 @@ struct Cell {
   static constexpr int kRow = (K + 1) * kMaxTile;    // strip row in shared memory
 };
 
-template <typename T, int K, bool STOKES>
+template <typename T, int K, bool STOKES, bool BATCHED>
 __global__ void __launch_bounds__(Cell<K>::kThreads)
 cell_apply_f_kernel(const T* __restrict__ x, View s, int lattice,
                     const T* __restrict__ uq, const T* __restrict__ guq,
                     const T* __restrict__ w, const T* __restrict__ tabs,
-                    T nu, T inv_dt, T* __restrict__ y, int nx, int ny,
-                    int tile) {
+                    T nu_scalar, const T* __restrict__ nu_b, T inv_dt,
+                    T* __restrict__ y, int nx, int ny, int tile) {
   constexpr int N = Cell<K>::N;
   constexpr int R = Cell<K>::kRow;
   constexpr int NF = STOKES ? 4 : 6;  // fluxes per (q, cell)
@@ -113,6 +124,9 @@ cell_apply_f_kernel(const T* __restrict__ x, View s, int lattice,
   const int ix0 = (blockIdx.x - iy * tiles) * tile;
   const int tv = min(tile, nx - ix0);  // cells in this tile
   const int c0 = iy * nx + ix0;
+  const int mb = BATCHED ? blockIdx.y : 0;  // member
+  const int B = BATCHED ? gridDim.y : 1;
+  const T nu = BATCHED && nu_b != nullptr ? nu_b[mb] : nu_scalar;
 
   // Thread (j, t): cell t of the tile, quadrature point j in step 2 and
   // local DoF j in step 3 (n_q = n_v).
@@ -127,7 +141,7 @@ cell_apply_f_kernel(const T* __restrict__ x, View s, int lattice,
   for (int i = threadIdx.x; i < 3 * N * N; i += blockDim.x) s_tab[i] = tabs[i];
   const int W = lattice ? K : K + 1;
   const int ncols = W * (tv - 1) + K + 1;
-  const T* xt = x + iy * s.iy + ix0 * s.ix;
+  const T* xt = x + mb * s.m + iy * s.iy + ix0 * s.ix;
   for (int i = threadIdx.x; i < 2 * (K + 1) * ncols; i += blockDim.x) {
     const int r = i / ncols;  // comp * (k + 1) + a
     const int u = i - r * ncols;
@@ -148,6 +162,7 @@ cell_apply_f_kernel(const T* __restrict__ x, View s, int lattice,
   const T* sDx = s_tab + N * N;
   const T* sDy = s_tab + 2 * N * N;
   const int fs = N * tile;  // s_f[f][q][t] at f * fs + q * tile + t
+  const int jm = j * B + mb;  // (quadrature point or local DoF j, member)
 
   // 2. evaluate at quadrature point q = j
   if (live) {
@@ -177,9 +192,9 @@ cell_apply_f_kernel(const T* __restrict__ x, View s, int lattice,
     f[2 * fs] = mul(mul(nu, gx1), wq);
     f[3 * fs] = mul(mul(nu, gy1), wq);
     if (!STOKES) {
-      const T u0 = uq[(2 * j) * C + c], u1 = uq[(2 * j + 1) * C + c];
-      const T g00 = guq[(4 * j + 0) * C + c], g01 = guq[(4 * j + 1) * C + c];
-      const T g10 = guq[(4 * j + 2) * C + c], g11 = guq[(4 * j + 3) * C + c];
+      const T u0 = uq[(2 * jm) * C + c], u1 = uq[(2 * jm + 1) * C + c];
+      const T g00 = guq[(4 * jm + 0) * C + c], g01 = guq[(4 * jm + 1) * C + c];
+      const T g10 = guq[(4 * jm + 2) * C + c], g11 = guq[(4 * jm + 3) * C + c];
       // (u_k . grad) x + (x . grad) u_k + x / dt, summed left to right
       T a0 = fmadd(u0, gx0, mul(u1, gy0));
       T a1 = fmadd(u0, gx1, mul(u1, gy1));
@@ -210,52 +225,59 @@ cell_apply_f_kernel(const T* __restrict__ x, View s, int lattice,
       y0 = add(y0, a0);
       y1 = add(y1, a1);
     }
-    y[(2 * j) * C + c] = y0;
-    y[(2 * j + 1) * C + c] = y1;
+    y[(2 * jm) * C + c] = y0;
+    y[(2 * jm + 1) * C + c] = y1;
   }
 }
 
 template <typename T, int K>
 void launch(int stokes, const void* x, View s, int lattice, const void* uq,
             const void* guq, const void* w, const void* tabs, double nu,
-            double inv_dt, void* y, int nx, int ny, cudaStream_t stream) {
+            const void* nu_b, double inv_dt, void* y, int nx, int ny,
+            int batch, cudaStream_t stream) {
   const int tiles = (nx + kMaxTile - 1) / kMaxTile;
   const int tile = (nx + tiles - 1) / tiles;
-  const dim3 grid(tiles * ny), block(Cell<K>::N * tile);
-  auto kernel = stokes ? cell_apply_f_kernel<T, K, true>
-                       : cell_apply_f_kernel<T, K, false>;
+  const dim3 grid(tiles * ny, batch), block(Cell<K>::N * tile);
+  const bool batched = batch > 1 || nu_b != nullptr;
+  auto kernel = stokes ? (batched ? cell_apply_f_kernel<T, K, true, true>
+                                  : cell_apply_f_kernel<T, K, true, false>)
+                       : (batched ? cell_apply_f_kernel<T, K, false, true>
+                                  : cell_apply_f_kernel<T, K, false, false>);
   kernel<<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), s, lattice, static_cast<const T*>(uq),
       static_cast<const T*>(guq), static_cast<const T*>(w),
-      static_cast<const T*>(tabs), T(nu), T(inv_dt), static_cast<T*>(y), nx,
-      ny, tile);
+      static_cast<const T*>(tabs), T(nu), static_cast<const T*>(nu_b),
+      T(inv_dt), static_cast<T*>(y), nx, ny, tile);
 }
 
 }  // namespace
 
 extern "C" {
 
-// k: velocity degree (2 or 3); s_*: element strides of the input view;
-// lattice: 1 when the view is a lattice's (shared edge nodes).  uq and guq
-// may be null in the Stokes regime.  Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for a variant that does
-// not exist.
+// k: velocity degree (2 or 3); s_*: element strides of the input view
+// (s_m: between members); lattice: 1 when the view is a lattice's (shared
+// edge nodes).  uq and guq may be null in the Stokes regime.  nu_b: [batch]
+// viscosities on the device, or null to use nu for every member.  Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a variant that does not exist.
 int nstt_cell_apply_f(int is_f64, int k, int stokes, const void* x, int s_a,
-                      int s_b, int s_comp, int s_iy, int s_ix, int lattice,
-                      const void* uq, const void* guq, const void* w,
-                      const void* tabs, double nu, double inv_dt, void* y,
-                      int nx, int ny, void* stream) {
-  if (nx <= 0 || ny <= 0) return 0;
-  const View s{s_a, s_b, s_comp, s_iy, s_ix};
+                      int s_b, int s_m, int s_comp, int s_iy, int s_ix,
+                      int lattice, const void* uq, const void* guq,
+                      const void* w, const void* tabs, double nu,
+                      const void* nu_b, double inv_dt, void* y, int nx,
+                      int ny, int batch, void* stream) {
+  if (nx <= 0 || ny <= 0 || batch <= 0) return 0;
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const View s{s_a, s_b, s_m, s_comp, s_iy, s_ix};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_f64 && k == 3) {
-    launch<double, 3>(stokes, x, s, lattice, uq, guq, w, tabs, nu, inv_dt, y, nx, ny, st);
+    launch<double, 3>(stokes, x, s, lattice, uq, guq, w, tabs, nu, nu_b, inv_dt, y, nx, ny, batch, st);
   } else if (is_f64 && k == 2) {
-    launch<double, 2>(stokes, x, s, lattice, uq, guq, w, tabs, nu, inv_dt, y, nx, ny, st);
+    launch<double, 2>(stokes, x, s, lattice, uq, guq, w, tabs, nu, nu_b, inv_dt, y, nx, ny, batch, st);
   } else if (!is_f64 && k == 3) {
-    launch<float, 3>(stokes, x, s, lattice, uq, guq, w, tabs, nu, inv_dt, y, nx, ny, st);
+    launch<float, 3>(stokes, x, s, lattice, uq, guq, w, tabs, nu, nu_b, inv_dt, y, nx, ny, batch, st);
   } else if (!is_f64 && k == 2) {
-    launch<float, 2>(stokes, x, s, lattice, uq, guq, w, tabs, nu, inv_dt, y, nx, ny, st);
+    launch<float, 2>(stokes, x, s, lattice, uq, guq, w, tabs, nu, nu_b, inv_dt, y, nx, ny, batch, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

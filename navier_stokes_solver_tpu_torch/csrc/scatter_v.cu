@@ -11,9 +11,13 @@
 //                     of loc[m, comp, cell], in ascending m, from +0.0
 //   with bc: out = active ? (dirichlet ? diag * x : out) : x
 //
-// Layouts: loc [n_v, 2, ny, nx] contiguous; out, diag [2, NY, NX]
-// contiguous; dirichlet, active [NY, NX] bool; x [2, NY, NX] read through
-// its three element strides.  NY = k ny + 1, NX = k nx + 1.
+// Layouts (B members): loc [n_v, B, 2, ny, nx] contiguous; out, diag
+// [B, 2, NY, NX] contiguous; dirichlet, active [NY, NX] bool, shared by the
+// members; x [B, 2, NY, NX] read through its four element strides.
+// NY = k ny + 1, NX = k nx + 1.  The member is blockIdx.y; each member's
+// sums are those of an unbatched launch, so member b of a batched launch
+// equals the unbatched launch bit for bit.  The member indexing is a
+// template parameter, left out of an unbatched launch (B = 1).
 //
 // Design: a "pull" scatter, one thread per lattice node (127k at 100x70).
 // Node (I, J) lies in at most two cell rows (I = k iy + a) and two cell
@@ -35,10 +39,11 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T, int K>
+template <typename T, int K, bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
 scatter_v_kernel(const T* __restrict__ loc, int nx, int ny,
-                 const T* __restrict__ x, int sx_c, int sx_y, int sx_x,
+                 const T* __restrict__ x, int sx_m, int sx_c, int sx_y,
+                 int sx_x,
                  const T* __restrict__ diag,
                  const unsigned char* __restrict__ dirichlet,
                  const unsigned char* __restrict__ active,
@@ -46,6 +51,8 @@ scatter_v_kernel(const T* __restrict__ loc, int nx, int ny,
   const int NX = K * nx + 1, NY = K * ny + 1;
   const int node = blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= 2 * NY * NX) return;
+  const int mb = BATCHED ? blockIdx.y : 0, B = BATCHED ? gridDim.y : 1;  // member
+  const int mo = mb * 2 * NY * NX;  // the member's offset in out and diag
   const int J = node % NX;
   const int rest = node / NX;
   const int I = rest % NY;
@@ -68,29 +75,32 @@ scatter_v_kernel(const T* __restrict__ loc, int nx, int ny,
       if (j == 0 ? qb >= nx : (rb != 0 || qb == 0)) continue;
       const int b = j == 0 ? rb : K;
       const int ix = qb - j;
-      s += loc[((a * (K + 1) + b) * 2 + comp) * C + iy * nx + ix];
+      s += loc[(((a * (K + 1) + b) * B + mb) * 2 + comp) * C + iy * nx + ix];
     }
   }
   if (diag != nullptr) {
     const int ij = I * NX + J;
-    const T xv = x[comp * sx_c + I * sx_y + J * sx_x];
+    const T xv = x[mb * sx_m + comp * sx_c + I * sx_y + J * sx_x];
     if (!active[ij]) {
       s = xv;
     } else if (dirichlet[ij]) {
-      s = diag[node] * xv;
+      s = diag[mo + node] * xv;
     }
   }
-  out[node] = s;
+  out[mo + node] = s;
 }
 
 template <typename T, int K>
-void launch(const void* loc, int nx, int ny, const void* x, int sx_c,
-            int sx_y, int sx_x, const void* diag, const void* dirichlet,
-            const void* active, void* out, cudaStream_t stream) {
+void launch(const void* loc, int nx, int ny, const void* x, int sx_m,
+            int sx_c, int sx_y, int sx_x, const void* diag,
+            const void* dirichlet, const void* active, void* out, int batch,
+            cudaStream_t stream) {
   const int nodes = 2 * (K * ny + 1) * (K * nx + 1);
-  scatter_v_kernel<T, K><<<(nodes + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      static_cast<const T*>(loc), nx, ny, static_cast<const T*>(x), sx_c, sx_y,
-      sx_x, static_cast<const T*>(diag),
+  const dim3 grid((nodes + kThreads - 1) / kThreads, batch);
+  auto kernel = batch > 1 ? scatter_v_kernel<T, K, true> : scatter_v_kernel<T, K, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(loc), nx, ny, static_cast<const T*>(x), sx_m, sx_c,
+      sx_y, sx_x, static_cast<const T*>(diag),
       static_cast<const unsigned char*>(dirichlet),
       static_cast<const unsigned char*>(active), static_cast<T*>(out));
 }
@@ -99,24 +109,25 @@ void launch(const void* loc, int nx, int ny, const void* x, int sx_c,
 
 extern "C" {
 
-// k: velocity degree (2 or 3).  diag null: no boundary rows (x, dirichlet
-// and active are then not read).  Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for a variant that does
-// not exist.
+// k: velocity degree (2 or 3); batch: members B.  diag null: no boundary
+// rows (x, dirichlet and active are then not read).  Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a variant that does not exist.
 int nstt_scatter_v(int is_f64, int k, const void* loc, int nx, int ny,
-                   const void* x, int sx_c, int sx_y, int sx_x,
+                   const void* x, int sx_m, int sx_c, int sx_y, int sx_x,
                    const void* diag, const void* dirichlet, const void* active,
-                   void* out, void* stream) {
-  if (nx <= 0 || ny <= 0) return 0;
+                   void* out, int batch, void* stream) {
+  if (nx <= 0 || ny <= 0 || batch <= 0) return 0;
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_f64 && k == 3) {
-    launch<double, 3>(loc, nx, ny, x, sx_c, sx_y, sx_x, diag, dirichlet, active, out, st);
+    launch<double, 3>(loc, nx, ny, x, sx_m, sx_c, sx_y, sx_x, diag, dirichlet, active, out, batch, st);
   } else if (is_f64 && k == 2) {
-    launch<double, 2>(loc, nx, ny, x, sx_c, sx_y, sx_x, diag, dirichlet, active, out, st);
+    launch<double, 2>(loc, nx, ny, x, sx_m, sx_c, sx_y, sx_x, diag, dirichlet, active, out, batch, st);
   } else if (!is_f64 && k == 3) {
-    launch<float, 3>(loc, nx, ny, x, sx_c, sx_y, sx_x, diag, dirichlet, active, out, st);
+    launch<float, 3>(loc, nx, ny, x, sx_m, sx_c, sx_y, sx_x, diag, dirichlet, active, out, batch, st);
   } else if (!is_f64 && k == 2) {
-    launch<float, 2>(loc, nx, ny, x, sx_c, sx_y, sx_x, diag, dirichlet, active, out, st);
+    launch<float, 2>(loc, nx, ny, x, sx_m, sx_c, sx_y, sx_x, diag, dirichlet, active, out, batch, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -18,6 +18,13 @@ Two entry points launch the same kernel (``csrc/cell_apply_f.cu``):
 * ``cell_apply_F`` takes gathered DoFs [n_v, 2, ny, nx], the layout of
   the JAX ``cell_apply_F_pallas``.
 
+Both take an optional member axis (an ensemble, ``ensemble/``): lattices
+[B, 2, NY, NX], gathered DoFs and results [n_v, B, 2, ny, nx], the
+linearization [n_q, B, ...], and ``nu`` a [B] tensor on the card (read by
+the kernel through a pointer: no host readback per launch).  One launch
+serves the B members; member b's result is the unbatched launch's on its
+operands, bit for bit.
+
 A block owns a tile of consecutive cells of one cell row.  It stages the
 tile's lattice strip and the tables in shared memory, then one thread per
 (quadrature point, cell) forms the fluxes and one thread per (local DoF,
@@ -37,6 +44,7 @@ import ctypes
 
 import torch
 
+from navier_stokes_solver_tpu_torch.ops.blocks import is_batched, per_member
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
 from navier_stokes_solver_tpu_torch.ops.lattice import _gather_v, lattice_view
 
@@ -53,35 +61,39 @@ __all__ = [
 def cell_apply_F_plain(disc: Disc, nu, inv_dt, linq, x_loc, *, stokes: bool):
     """The same function as the kernel, in plain PyTorch (einsum).
 
-    ``x_loc``: gathered input DoFs [n_v, 2, ny, nx]; ``linq``: the
-    LinearizationQ at quadrature points (ignored in the Stokes regime).
-    Returns the local test-function contributions [n_v, 2, ny, nx].
+    ``x_loc``: gathered input DoFs [n_v, (B,) 2, ny, nx]; ``linq``: the
+    LinearizationQ at quadrature points (ignored in the Stokes regime);
+    ``nu`` a number or, with the member axis, a [B] tensor.  Returns the
+    local test-function contributions [n_v, (B,) 2, ny, nx].
     """
     P, Dx, Dy = disc.cell_tabs
-    w = disc.cell_w  # [n_q, ny, nx]
-    gx = torch.einsum("qm,mcyx->qcyx", Dx, x_loc)
-    gy = torch.einsum("qm,mcyx->qcyx", Dy, x_loc)
-    y = torch.einsum("qm,qcyx->mcyx", Dx, nu * gx * w[:, None]) + torch.einsum(
-        "qm,qcyx->mcyx", Dy, nu * gy * w[:, None]
+    # JxW [n_q, ny, nx], broadcast over the member and component axes
+    w = disc.cell_w
+    w = w.reshape(w.shape[:1] + (1,) * (x_loc.dim() - 3) + w.shape[1:])
+    nu = per_member(nu, x_loc.dim(), 1)
+    gx = torch.einsum("qm,m...->q...", Dx, x_loc)
+    gy = torch.einsum("qm,m...->q...", Dy, x_loc)
+    y = torch.einsum("qm,q...->m...", Dx, nu * gx * w) + torch.einsum(
+        "qm,q...->m...", Dy, nu * gy * w
     )
     if not stokes:
-        v = torch.einsum("qm,mcyx->qcyx", P, x_loc)
+        v = torch.einsum("qm,m...->q...", P, x_loc)
         u, gu = linq.u, linq.gradu
         # (u_k . grad) dv + (dv . grad) u_k + dv / dt, per component c
         f_v = (
-            u[:, 0:1] * gx
-            + u[:, 1:2] * gy
-            + v[:, 0:1] * gu[:, :, 0]
-            + v[:, 1:2] * gu[:, :, 1]
+            u[..., 0:1, :, :] * gx
+            + u[..., 1:2, :, :] * gy
+            + v[..., 0:1, :, :] * gu[..., 0, :, :]
+            + v[..., 1:2, :, :] * gu[..., 1, :, :]
             + inv_dt * v
         )
-        y = y + torch.einsum("qm,qcyx->mcyx", P, f_v * w[:, None])
+        y = y + torch.einsum("qm,q...->m...", P, f_v * w)
     return y
 
 
 def cell_apply_F_lattice_plain(disc: Disc, nu, inv_dt, linq, x_u, *, stokes: bool):
     """``cell_apply_F_lattice`` in plain PyTorch: gather, then the plain
-    cell apply.  ``x_u``: velocity lattice [2, NY, NX]."""
+    cell apply.  ``x_u``: velocity lattice [(B,) 2, NY, NX]."""
     return cell_apply_F_plain(disc, nu, inv_dt, linq, _gather_v(disc, x_u), stokes=stokes)
 
 
@@ -115,7 +127,9 @@ def check_operand(who: str, name: str, t: torch.Tensor, shape: tuple, dtype, dev
         raise ValueError(f"{who}: {name} must be contiguous")
 
 
-def _check_common(disc: Disc, linq, stokes: bool):
+def _check_common(disc: Disc, nu, linq, stokes: bool, lead: tuple):
+    """Dtypes, variant, the linearization's shapes (``lead``: () or the
+    member count (B,)) and a batched ``nu``'s."""
     n_q, n_v = disc.cell_tabs.shape[1:]
     dtype, device = disc.dtype, disc.device
     if dtype not in (torch.float32, torch.float64):
@@ -126,14 +140,16 @@ def _check_common(disc: Disc, linq, stokes: bool):
         if linq is None:
             raise ValueError("cell_apply_F: the Newton regime needs linq")
         ny, nx = disc.ny, disc.nx
-        check_operand("cell_apply_F", "linq.u", linq.u, (n_q, 2, ny, nx), dtype, device)
-        check_operand("cell_apply_F", "linq.gradu", linq.gradu, (n_q, 2, 2, ny, nx), dtype, device)
+        check_operand("cell_apply_F", "linq.u", linq.u, (n_q, *lead, 2, ny, nx), dtype, device)
+        check_operand("cell_apply_F", "linq.gradu", linq.gradu, (n_q, *lead, 2, 2, ny, nx), dtype, device)
+    if is_batched(nu):
+        check_operand("cell_apply_F", "nu", nu, lead, dtype, device)
 
 
 def _launch(disc: Disc, nu, inv_dt, linq, view: torch.Tensor, *, lattice: bool, stokes: bool):
-    """Launch the kernel on ``view``, the [k+1, k+1, 2, ny, nx] cell-local
-    view of the input (the lattice's when ``lattice``), read through its
-    five strides."""
+    """Launch the kernel on ``view``, the [k+1, k+1, (B,) 2, ny, nx]
+    cell-local view of the input (the lattice's when ``lattice``), read
+    through its strides."""
     device = disc.device
     if device.type != "cuda":
         raise ValueError(f"cell_apply_F: no kernel for device {device}")
@@ -142,30 +158,36 @@ def _launch(disc: Disc, nu, inv_dt, linq, view: torch.Tensor, *, lattice: bool, 
     lib = _ext.load()
     n_v = disc.cell_tabs.shape[2]
     ny, nx = disc.ny, disc.nx
-    y = torch.empty((n_v, 2, ny, nx), dtype=disc.dtype, device=device)
+    lead = tuple(view.shape[2:-3])  # (B,) with the member axis
+    sa, sb, *s_m, sc, sy, sx = view.stride()
+    y = torch.empty((n_v, *lead, 2, ny, nx), dtype=disc.dtype, device=device)
     uq, guq = (None, None) if stokes else (linq.u.data_ptr(), linq.gradu.data_ptr())
+    # a batched nu is read on the card; a number is passed by value
+    nu_b, nu_h = (nu.data_ptr(), 0.0) if is_batched(nu) else (None, float(nu))
     err = lib.nstt_cell_apply_f(
         1 if disc.dtype == torch.float64 else 0,
         disc.deg_v,
         int(stokes),
         view.data_ptr(),
-        *view.stride(),
+        sa, sb, s_m[0] if s_m else 0, sc, sy, sx,
         int(lattice),
         uq,
         guq,
         disc.cell_w.data_ptr(),
         disc.cell_tabs.data_ptr(),
-        ctypes.c_double(float(nu)),
+        ctypes.c_double(nu_h),
+        nu_b,
         ctypes.c_double(float(inv_dt)),
         y.data_ptr(),
         nx,
         ny,
+        lead[0] if lead else 1,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"cell_apply_F: kernel launch failed ({_ext.error_string(err)})")
     cell_apply_F.launches += 1
-    cell_apply_F.launches_by_shape[(nx, ny, bool(stokes), str(disc.dtype)[6:])] += 1
+    cell_apply_F.launches_by_shape[(nx, ny, bool(stokes), str(disc.dtype)[6:]) + tuple(f"B{b}" for b in lead)] += 1
     return y
 
 
@@ -173,33 +195,36 @@ def cell_apply_F(disc: Disc, nu, inv_dt, linq, x_loc, *, stokes: bool):
     """Fused per-cell compute of the velocity-block apply on gathered DoFs.
 
     Takes and returns the layout of the JAX ``cell_apply_F_pallas``:
-    ``x_loc`` [n_v, 2, ny, nx] (contiguous) -> [n_v, 2, ny, nx].  A CUDA
+    ``x_loc`` [n_v, (B,) 2, ny, nx] (contiguous) -> the same shape.  A CUDA
     tensor goes through the hand-written kernel; a CPU tensor through
     ``cell_apply_F_plain``.  ``cell_apply_F.launches`` counts the kernel's
     launches through either entry point, ``cell_apply_F.launches_by_shape``
-    the same by ``(nx, ny, stokes, dtype name)``.
+    the same by ``(nx, ny, stokes, dtype name)`` (and ``"B<members>"`` for
+    a batched launch).
     """
-    _check_common(disc, linq, stokes)
+    lead = tuple(x_loc.shape[1:-3])
+    _check_common(disc, nu, linq, stokes, lead)
     k, ny, nx = disc.deg_v, disc.ny, disc.nx
-    check_operand("cell_apply_F", "x_loc", x_loc, ((k + 1) ** 2, 2, ny, nx), disc.dtype, disc.device)
+    check_operand("cell_apply_F", "x_loc", x_loc, ((k + 1) ** 2, *lead, 2, ny, nx), disc.dtype, disc.device)
     if disc.device.type == "cpu":
         return cell_apply_F_plain(disc, nu, inv_dt, linq, x_loc, stokes=stokes)
-    view = x_loc.view(k + 1, k + 1, 2, ny, nx)
+    view = x_loc.view(k + 1, k + 1, *lead, 2, ny, nx)
     return _launch(disc, nu, inv_dt, linq, view, lattice=False, stokes=stokes)
 
 
 def cell_apply_F_lattice(disc: Disc, nu, inv_dt, linq, x_u, *, stokes: bool):
-    """The same apply on the velocity lattice ``x_u`` [2, NY, NX], read in
-    place: the gather is fused into the kernel.
+    """The same apply on the velocity lattice ``x_u`` [(B,) 2, NY, NX], read
+    in place: the gather is fused into the kernel.
 
     ``x_u`` must be dense (contiguous, or with its axes permuted, as the
     multigrid transfers' einsum outputs are): the kernel indexes in 32
     bits, which every offset into a dense lattice fits.  Its strides are
-    passed to the kernel.  Returns [n_v, 2, ny, nx] contiguous.  A CPU
-    tensor takes ``cell_apply_F_lattice_plain``.
+    passed to the kernel.  Returns [n_v, (B,) 2, ny, nx] contiguous.  A
+    CPU tensor takes ``cell_apply_F_lattice_plain``.
     """
-    _check_common(disc, linq, stokes)
-    check_operand("cell_apply_F", "x_u", x_u, (2,) + disc.NV, disc.dtype, disc.device, dense=True)
+    lead = tuple(x_u.shape[:-3])
+    _check_common(disc, nu, linq, stokes, lead)
+    check_operand("cell_apply_F", "x_u", x_u, lead + (2,) + disc.NV, disc.dtype, disc.device, dense=True)
     if disc.device.type == "cpu":
         return cell_apply_F_lattice_plain(disc, nu, inv_dt, linq, x_u, stokes=stokes)
     view = lattice_view(x_u, disc.deg_v, disc.ny, disc.nx)

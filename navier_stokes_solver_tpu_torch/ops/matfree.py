@@ -26,6 +26,13 @@ implicit-Euler mass term and flips the continuity coupling sign.
 Dirichlet rows follow ``MatrixTools::apply_boundary_values`` with
 ``eliminate_columns = false`` (NSSolver.cpp:596-597): constrained rows
 become ``diag * x_i`` and the rhs entry ``diag * g_i``.
+
+Member axis (an ensemble, ``ensemble/``).  Every operator also takes B
+members at once: lattices [B, 2, NY, NX] and [B, NPy, NPx], quadrature
+and cell-local tensors with the member axis after their leading q or
+local-DoF axis ([n_q, B, ...]), and ``nu`` a [B] tensor.  The geometry,
+masks and tables are shared; ``dirichlet_values`` and ``diag_Lp`` do not
+depend on the member.  A member's arithmetic is the unbatched call's.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from navier_stokes_solver_tpu_torch.ops.blocks import Blocks
+from navier_stokes_solver_tpu_torch.ops.blocks import Blocks, is_batched, per_member
 from navier_stokes_solver_tpu_torch.ops.cell_kernel import cell_apply_F_lattice
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
 from navier_stokes_solver_tpu_torch.ops.lattice import (  # noqa: F401 (_gather, _scatter: tests)
@@ -76,26 +83,26 @@ __all__ = [
 
 
 def _eval_v(disc: Disc, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Velocity values [n_q, 2, ny, nx] and physical gradients
-    [n_q, 2(comp), 2(dim), ny, nx] at volume quadrature points (both
+    """Velocity values [n_q, (B,) 2, ny, nx] and physical gradients
+    [n_q, (B,) 2(comp), 2(dim), ny, nx] at volume quadrature points (both
     contiguous: the fused cell kernel reads them directly)."""
     loc = _gather_v(disc, u)
-    vals = torch.einsum("qm,mcyx->qcyx", disc.phi_v, loc).contiguous()
-    gx = torch.einsum("qm,mcyx->qcyx", disc.dphi_v[:, :, 0], loc) / disc.hx
-    gy = torch.einsum("qm,mcyx->qcyx", disc.dphi_v[:, :, 1], loc) / disc.hy
-    return vals, torch.stack([gx, gy], dim=2)
+    vals = torch.einsum("qm,m...->q...", disc.phi_v, loc).contiguous()
+    gx = torch.einsum("qm,m...->q...", disc.dphi_v[:, :, 0], loc) / disc.hx
+    gy = torch.einsum("qm,m...->q...", disc.dphi_v[:, :, 1], loc) / disc.hy
+    return vals, torch.stack([gx, gy], dim=-3)
 
 
 def _eval_p(disc: Disc, p: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("qn,nyx->qyx", disc.phi_p, _gather_p(disc, p))
+    return torch.einsum("qn,n...->q...", disc.phi_p, _gather_p(disc, p))
 
 
 class LinearizationQ(NamedTuple):
     """Current Newton state evaluated at quadrature points."""
 
-    u: torch.Tensor  # [n_q, 2, ny, nx]
-    gradu: torch.Tensor  # [n_q, 2, 2, ny, nx]
-    p: torch.Tensor | None  # [n_q, ny, nx]
+    u: torch.Tensor  # [n_q, (B,) 2, ny, nx]
+    gradu: torch.Tensor  # [n_q, (B,) 2, 2, ny, nx]
+    p: torch.Tensor | None  # [n_q, (B,) ny, nx]
 
 
 def eval_state(disc: Disc, st: Blocks) -> LinearizationQ:
@@ -112,20 +119,21 @@ def _project_v(disc: Disc, f_val, f_grad) -> torch.Tensor:
     """R[m,c] = sum_q JxW (f_val[q,c] phi_m + f_grad[q,c,:] . grad phi_m),
     masked by active cells, scattered to the velocity lattice.
 
-    Either of ``f_val`` [n_q,2,ny,nx] / ``f_grad`` [n_q,2,2,ny,nx] may be None.
+    Either of ``f_val`` [n_q,(B,)2,ny,nx] / ``f_grad`` [n_q,(B,)2,2,ny,nx]
+    may be None.
     """
     w = disc.w_q
     mask = disc.cell_mask
     loc = None
     if f_val is not None:
         phi_w = disc.phi_v * w[:, None]
-        loc = torch.einsum("qm,qcyx->mcyx", phi_w, f_val * mask)
+        loc = torch.einsum("qm,q...->m...", phi_w, f_val * mask)
     if f_grad is not None:
         dxw = disc.dphi_v[:, :, 0] * (w / disc.hx)[:, None]
         dyw = disc.dphi_v[:, :, 1] * (w / disc.hy)[:, None]
         g = f_grad * mask
-        term = torch.einsum("qm,qcyx->mcyx", dxw, g[:, :, 0]) + torch.einsum(
-            "qm,qcyx->mcyx", dyw, g[:, :, 1]
+        term = torch.einsum("qm,q...->m...", dxw, g[..., 0, :, :]) + torch.einsum(
+            "qm,q...->m...", dyw, g[..., 1, :, :]
         )
         loc = term if loc is None else loc + term
     return _scatter_v(disc, loc)
@@ -134,7 +142,7 @@ def _project_v(disc: Disc, f_val, f_grad) -> torch.Tensor:
 def _project_p(disc: Disc, f_val: torch.Tensor) -> torch.Tensor:
     """R[n] = sum_q JxW f_val[q] psi_n, masked and scattered."""
     phi_w = disc.phi_p * disc.w_q[:, None]
-    return _scatter_p(disc, torch.einsum("qn,qyx->nyx", phi_w, f_val * disc.cell_mask))
+    return _scatter_p(disc, torch.einsum("qn,q...->n...", phi_w, f_val * disc.cell_mask))
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +153,8 @@ def _project_p(disc: Disc, f_val: torch.Tensor) -> torch.Tensor:
 def _convection_linearized(linq: LinearizationQ, xv, xg) -> torch.Tensor:
     """Frechet derivative of the convective term at u_k (NSSolver.cpp:424-441):
     conv[c] = sum_l u_k[l] * dx[c,l] + xv[l] * gradu_k[c,l]."""
-    return torch.einsum("qlyx,qclyx->qcyx", linq.u, xg) + torch.einsum(
-        "qlyx,qclyx->qcyx", xv, linq.gradu
+    return torch.einsum("q...lyx,q...clyx->q...cyx", linq.u, xg) + torch.einsum(
+        "q...lyx,q...clyx->q...cyx", xv, linq.gradu
     )
 
 
@@ -154,6 +162,7 @@ def _apply_F_unfused(disc: Disc, nu, inv_dt, linq, x_u, *, stokes: bool):
     """The separate eval / physics / project pipeline of the JAX package's
     XLA path -- the reference the tests hold ``apply_F`` against."""
     xv, xg = _eval_v(disc, x_u)
+    nu = per_member(nu, xg.dim(), 1)
     if stokes:
         return _project_v(disc, None, nu * xg)
     f_val = _convection_linearized(linq, xv, xg) + inv_dt * xv
@@ -209,7 +218,7 @@ def apply_Bt(
     constrained rows were eliminated (NSSolver.cpp:649).
     """
     pv = _eval_p(disc, x_p)
-    y = _project_v(disc, None, -pv[:, None, None] * _eye2(disc))
+    y = _project_v(disc, None, -pv[..., None, None, :, :] * _eye2(disc))
     if zero_dirichlet_rows:
         y = torch.where(disc.u_dirichlet | ~disc.u_active, 0.0, y)
     return y
@@ -220,14 +229,15 @@ def apply_B(disc: Disc, x_u: torch.Tensor, *, stokes: bool) -> torch.Tensor:
     regime (NSSolver.cpp:401-403), +(div du, q) in the Newton regime
     (NSSolver.cpp:461-463)."""
     _, xg = _eval_v(disc, x_u)
-    div = xg[:, 0, 0] + xg[:, 1, 1]
+    div = xg[..., 0, 0, :, :] + xg[..., 1, 1, :, :]
     return _project_p(disc, -div if stokes else div)
 
 
 def apply_Mp(disc: Disc, nu, x_p: torch.Tensor) -> torch.Tensor:
     """Pressure mass matrix scaled by 1/nu (NSSolver.cpp:406-408), with
     identity on non-existent pressure lanes."""
-    y = _project_p(disc, _eval_p(disc, x_p) / nu)
+    pv = _eval_p(disc, x_p)
+    y = _project_p(disc, pv / per_member(nu, pv.dim(), 1))
     return torch.where(disc.p_active, y, x_p)
 
 
@@ -243,8 +253,8 @@ def p_outlet_mask(disc: Disc) -> torch.Tensor:
 
 def _p_grads(disc: Disc, loc: torch.Tensor):
     """Physical pressure gradients [n_q, ny, nx] x 2 of gathered nodes."""
-    gx = torch.einsum("qn,nyx->qyx", disc.dphi_p[:, :, 0], loc) / disc.hx
-    gy = torch.einsum("qn,nyx->qyx", disc.dphi_p[:, :, 1], loc) / disc.hy
+    gx = torch.einsum("qn,n...->q...", disc.dphi_p[:, :, 0], loc) / disc.hx
+    gy = torch.einsum("qn,n...->q...", disc.dphi_p[:, :, 1], loc) / disc.hy
     return gx, gy
 
 
@@ -254,8 +264,8 @@ def _p_diffusion(disc: Disc, gx, gy) -> torch.Tensor:
     dxw = disc.dphi_p[:, :, 0] * (w / disc.hx)[:, None]
     dyw = disc.dphi_p[:, :, 1] * (w / disc.hy)[:, None]
     mask = disc.cell_mask
-    return torch.einsum("qn,qyx->nyx", dxw, gx * mask) + torch.einsum(
-        "qn,qyx->nyx", dyw, gy * mask
+    return torch.einsum("qn,q...->n...", dxw, gx * mask) + torch.einsum(
+        "qn,q...->n...", dyw, gy * mask
     )
 
 
@@ -335,13 +345,13 @@ def apply_jacobian(
     """
     xv, xg = _eval_v(disc, x.u)
     pv = _eval_p(disc, x.p)
-    f_grad = nu * xg - pv[:, None, None] * _eye2(disc)
+    f_grad = per_member(nu, xg.dim(), 1) * xg - pv[..., None, None, :, :] * _eye2(disc)
     if stokes:
         yu = _project_v(disc, None, f_grad)
     else:
         f_val = _convection_linearized(linq, xv, xg) + inv_dt * xv
         yu = _project_v(disc, f_val, f_grad)
-    div = xg[:, 0, 0] + xg[:, 1, 1]
+    div = xg[..., 0, 0, :, :] + xg[..., 1, 1, :, :]
     yp = _project_p(disc, -div if stokes else div)
 
     yu = torch.where(disc.u_dirichlet, bc_diag * x.u, yu)
@@ -391,11 +401,12 @@ def residual(
     else:
         linq = eval_state(disc, st)
         u_old_q, _ = _eval_v(disc, u_old)
-        conv = torch.einsum("qlyx,qclyx->qcyx", linq.u, linq.gradu)
+        conv = torch.einsum("q...lyx,q...clyx->q...cyx", linq.u, linq.gradu)
         f_val = -inv_dt * (linq.u - u_old_q) - conv
-        f_grad = -nu * linq.gradu + linq.p[:, None, None] * _eye2(disc)
+        nu = per_member(nu, linq.gradu.dim(), 1)
+        f_grad = -nu * linq.gradu + linq.p[..., None, None, :, :] * _eye2(disc)
         ru = _project_v(disc, f_val, f_grad) + p_out * disc.neumann_rhs1
-        div = linq.gradu[:, 0, 0] + linq.gradu[:, 1, 1]
+        div = linq.gradu[..., 0, 0, :, :] + linq.gradu[..., 1, 1, :, :]
         rp = _project_p(disc, -div if consistent else div)
 
     g = dirichlet_values(disc, inlet_amp)
@@ -426,7 +437,8 @@ def diag_F(
       JxW * [ nu |grad phi_m|^2
               + (Newton) phi_m^2 / dt + phi_m (u_k . grad phi_m)
               + (Newton) phi_m^2 (grad u_k)_{cc} ].
-    Non-existent lanes get 1.0 so the result is safely invertible.
+    Non-existent lanes get 1.0 so the result is safely invertible.  With a
+    [B] ``nu`` the result is [B, 2, NY, NX].
     """
     n_v = disc.phi_v.shape[1]
     w = disc.w_q
@@ -434,34 +446,37 @@ def diag_F(
     dx = disc.dphi_v[:, :, 0] / disc.hx
     dy = disc.dphi_v[:, :, 1] / disc.hy
 
-    visc = torch.einsum("q,qm->m", w, nu * (dx * dx + dy * dy))
-    loc = visc[:, None, None, None].expand(n_v, 2, disc.ny, disc.nx)
+    # [(B,) n_v] -> local layout [n_v, (B,) 2, ny, nx]
+    visc = torch.einsum("q,...qm->...m", w, per_member(nu, 3, 0) * (dx * dx + dy * dy))
+    visc = visc.movedim(-1, 0)
+    loc = visc.reshape(visc.shape + (1, 1, 1)).expand(visc.shape + (2, disc.ny, disc.nx))
     if not stokes:
         mass = torch.einsum("q,qm->m", w, phi * phi) * inv_dt
-        loc = loc + mass[:, None, None, None]
+        loc = loc + mass.reshape((n_v,) + (1,) * (loc.dim() - 1))
         # field terms: phi (u_k . grad phi)  and  phi^2 (grad u_k)_{cc}
         conv1 = torch.einsum(
-            "qm,qyx->myx", w[:, None] * phi * dx, linq.u[:, 0]
-        ) + torch.einsum("qm,qyx->myx", w[:, None] * phi * dy, linq.u[:, 1])
+            "qm,q...->m...", w[:, None] * phi * dx, linq.u[..., 0, :, :]
+        ) + torch.einsum("qm,q...->m...", w[:, None] * phi * dy, linq.u[..., 1, :, :])
         phi2w = w[:, None] * phi * phi
         conv2 = torch.stack(
             [
-                torch.einsum("qm,qyx->myx", phi2w, linq.gradu[:, 0, 0]),
-                torch.einsum("qm,qyx->myx", phi2w, linq.gradu[:, 1, 1]),
+                torch.einsum("qm,q...->m...", phi2w, linq.gradu[..., 0, 0, :, :]),
+                torch.einsum("qm,q...->m...", phi2w, linq.gradu[..., 1, 1, :, :]),
             ],
-            dim=1,
-        )  # [n_v, 2, ny, nx]
-        loc = loc + conv1[:, None] + conv2
+            dim=-3,
+        )  # [n_v, (B,) 2, ny, nx]
+        loc = loc + conv1[..., None, :, :] + conv2
     d = _scatter_v(disc, loc * disc.cell_mask)
     return torch.where(disc.u_active, d, 1.0)
 
 
 def diag_Mp(disc: Disc, nu) -> torch.Tensor:
-    """Diagonal of the (1/nu-scaled) pressure mass matrix."""
-    n_p = disc.phi_p.shape[1]
-    loc = torch.einsum("q,qn->n", disc.w_q, disc.phi_p * disc.phi_p) / nu
+    """Diagonal of the (1/nu-scaled) pressure mass matrix ([B, NPy, NPx]
+    with a [B] ``nu``)."""
+    loc = torch.einsum("q,qn->n", disc.w_q, disc.phi_p * disc.phi_p)
+    loc = (loc[:, None] if is_batched(nu) else loc) / nu  # [n_p, (B,)]
     d = _scatter_p(
-        disc, loc[:, None, None].expand(n_p, disc.ny, disc.nx) * disc.cell_mask
+        disc, loc[..., None, None].expand(loc.shape + (disc.ny, disc.nx)) * disc.cell_mask
     )
     return torch.where(disc.p_active, d, 1.0)
 
@@ -491,15 +506,17 @@ def lift_drag_forces(disc: Disc, nu, st: Blocks) -> tuple[torch.Tensor, torch.Te
     sigma = nu (grad u + grad u^T) - p I; per face quadrature point the force
     is -sigma . n * JxW with n the cell-outward normal (pointing into the
     cylinder), matching NSSolver.cpp:892-927.  Returns (drag, lift) =
-    (F_x, F_y) as 0-dim tensors.
+    (F_x, F_y) as 0-dim tensors, or [B] tensors with the member axis.
     """
     t = disc.tables
     put = lambda a: torch.as_tensor(a, device=disc.device).to(disc.dtype)
-    u_loc = _gather_v(disc, st.u)  # [n_v, 2, ny, nx]
+    u_loc = _gather_v(disc, st.u)  # [n_v, (B,) 2, ny, nx]
     p_loc = _gather_p(disc, st.p)
     face_h = (disc.hy, disc.hy, disc.hx, disc.hx)
     drag = torch.zeros((), dtype=disc.dtype, device=disc.device)
     lift = torch.zeros((), dtype=disc.dtype, device=disc.device)
+    # a sum over the cells of each member (all of one run's)
+    cells = (lambda f: torch.sum(f)) if st.u.dim() == 3 else (lambda f: f.sum((-2, -1)))
     for f in range(4):
         mask = disc.cyl_face_mask[f]
         dphi = put(t.dphi_v_face[f])
@@ -507,15 +524,15 @@ def lift_drag_forces(disc: Disc, nu, st: Blocks) -> tuple[torch.Tensor, torch.Te
         wf = put(t.w_qf) * face_h[f]
         n = put(t.normals[f])
 
-        gx = torch.einsum("qm,mcyx->qcyx", dphi[:, :, 0], u_loc) / disc.hx
-        gy = torch.einsum("qm,mcyx->qcyx", dphi[:, :, 1], u_loc) / disc.hy
-        grad = torch.stack([gx, gy], dim=2)  # [qf, c, d, ny, nx]
-        pv = torch.einsum("qn,nyx->qyx", phip, p_loc)
+        gx = torch.einsum("qm,m...->q...", dphi[:, :, 0], u_loc) / disc.hx
+        gy = torch.einsum("qm,m...->q...", dphi[:, :, 1], u_loc) / disc.hy
+        grad = torch.stack([gx, gy], dim=-3)  # [qf, (B,) c, d, ny, nx]
+        pv = torch.einsum("qn,n...->q...", phip, p_loc)
 
-        sig = nu * (grad + grad.transpose(1, 2))
-        sig = sig - pv[:, None, None] * _eye2(disc)
+        sig = per_member(nu, grad.dim(), 1) * (grad + grad.transpose(-4, -3))
+        sig = sig - pv[..., None, None, :, :] * _eye2(disc)
         # force[c] = -sum_d sig[c,d] n[d] * JxW_f, masked to id-10 faces
-        force = -torch.einsum("qcdyx,d,q->cyx", sig, n, wf)
-        drag = drag + torch.sum(force[0] * mask)
-        lift = lift + torch.sum(force[1] * mask)
+        force = -torch.einsum("q...cdyx,d,q->...cyx", sig, n, wf)
+        drag = drag + cells(force[..., 0, :, :] * mask)
+        lift = lift + cells(force[..., 1, :, :] * mask)
     return drag, lift

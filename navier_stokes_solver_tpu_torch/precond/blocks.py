@@ -19,6 +19,13 @@ simplex backend the velocity leg is the P2 -> P1 p-multigrid
 when attached (``unstructured/dense.py``).  ``PrecondConfig.direct_lu``
 replaces the block preconditioner by an f32 dense LU of the whole saddle
 Jacobian where the system is small enough (``make_direct_lu``).
+
+An ensemble's context (a [B] ``nu``, ``LinearContext.batched``) builds one
+preconditioner for its B members: blockTriangular with the geometric-MG
+velocity leg (GMRES smoother) and the Cahouet-Chabard pressure leg, the
+nested solves the batched Krylov solvers.  ``check_batched``, called where
+the ensemble's step is built, names what has no batched form yet (ROADMAP
+A.D8b).
 """
 
 from __future__ import annotations
@@ -30,8 +37,17 @@ from typing import Any, Callable
 
 import torch
 
-from navier_stokes_solver_tpu_torch.krylov import LowCycle, cg, fgmres, tnorm
+from navier_stokes_solver_tpu_torch.krylov import (
+    LowCycle,
+    bnorm,
+    cg,
+    cg_batched,
+    fgmres,
+    fgmres_batched,
+    tnorm,
+)
 from navier_stokes_solver_tpu_torch.ops import Blocks, LinearizationQ, matfree
+from navier_stokes_solver_tpu_torch.ops.blocks import is_batched
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
 from navier_stokes_solver_tpu_torch.precond.mg import (
     SMOOTHERS,
@@ -43,7 +59,7 @@ from navier_stokes_solver_tpu_torch.precond.mg import (
     make_mg_vcycle,
 )
 
-__all__ = ["LinearContext", "PrecondConfig", "make_preconditioner", "make_krylov_lo"]
+__all__ = ["LinearContext", "PrecondConfig", "make_preconditioner", "make_krylov_lo", "check_batched"]
 
 VARIANTS = ("stationary", "unsteady")
 SCHUR_MODES = ("mass", "cahouet", "pcd")
@@ -160,13 +176,26 @@ class LinearContext:
     ``preconditioner.initialize(...)``, NSSolver.cpp:607-651)."""
 
     disc: Disc | Any  # structured Disc or unstructured SimplexDisc
-    nu: float
+    nu: float | torch.Tensor  # a [B] tensor for an ensemble's members
     inv_dt: float
     stokes: bool
     linq: LinearizationQ | None  # Newton linearization state at q-points
     diag_f: torch.Tensor  # diag of the (post-BC) velocity block
     state_u: torch.Tensor | None = None  # nodal velocity (MG rediscretization)
     ops: Any = matfree  # backend operators: ops.matfree | unstructured.ops
+
+    @property
+    def batched(self) -> bool:
+        """True for an ensemble's context (a [B] ``nu``; vectors then carry
+        the member axis)."""
+        return is_batched(self.nu)
+
+    def krylov(self):
+        """``(fgmres, cg, norm)`` of this context: the batched solvers and
+        per-member norms for an ensemble's."""
+        if self.batched:
+            return fgmres_batched, cg_batched, bnorm
+        return fgmres, cg, tnorm
 
     # ---- block applies (post boundary elimination, NSSolver.cpp:596) ----
     @functools.cached_property
@@ -276,7 +305,7 @@ def _lp_preconditioner(ctx: LinearContext):
     if _lp_is_exact(ctx):
         return _dense_matvec(ctx.disc.dense_lp_inv)
     if _lp_has_vcycle(ctx):
-        return make_lp_vcycle(ctx.disc)
+        return make_lp_vcycle(ctx.disc, batched=ctx.batched)
     dinv = 1.0 / ctx.ops.diag_Lp(ctx.disc)
     return lambda r: dinv * r
 
@@ -290,6 +319,7 @@ def _make_p_solver(ctx: LinearContext, cfg: PrecondConfig):
     or ``cc_lp_cycles`` residual-corrected V-cycles).  "pcd":
     dp = Mp_raw^-1 Fp Lp^-1 rhs.
     """
+    fgmres_, cg_, norm_ = ctx.krylov()
     dense_mp = getattr(ctx.disc, "dense_mp_raw_inv", None)
     if dense_mp is not None:
         # the exact mass solve as one product: apply_Mp = Mp_raw / nu, so
@@ -303,8 +333,8 @@ def _make_p_solver(ctx: LinearContext, cfg: PrecondConfig):
         mp = ctx.jacobi_Mp()
 
         def solve_mass(rhs, tol):
-            dp, _ = cg(ctx.Mp, rhs, torch.zeros_like(rhs), tol=tol,
-                       maxiter=cfg.inner_maxiter, M=mp)
+            dp, _ = cg_(ctx.Mp, rhs, torch.zeros_like(rhs), tol=tol,
+                        maxiter=cfg.inner_maxiter, M=mp)
             return dp
 
     mode = _schur_mode(ctx, cfg)
@@ -334,8 +364,8 @@ def _make_p_solver(ctx: LinearContext, cfg: PrecondConfig):
         def solve_lp(rhs):
             # FGMRES, not CG: the V-cycle's inexact coarse solve makes the
             # preconditioner (mildly) nonlinear, which stalls CG
-            dl, _ = fgmres(
-                ctx.Lp, rhs, torch.zeros_like(rhs), tol=rel * tnorm(rhs),
+            dl, _ = fgmres_(
+                ctx.Lp, rhs, torch.zeros_like(rhs), tol=rel * norm_(rhs),
                 maxiter=cfg.inner_maxiter, M=mlp,
             )
             return dl
@@ -484,17 +514,18 @@ def make_block_triangular(ctx: LinearContext, cfg: PrecondConfig, variant: str):
 
     solve_p = _make_p_solver(ctx, cfg)
     eps = torch.finfo(ctx.disc.dtype).eps
+    fgmres_, _, norm_ = ctx.krylov()
 
     def vmult(src: Blocks) -> Blocks:
-        du, _ = fgmres(
-            ctx.F, src.u, ctx.disc.zeros_u(), tol=rel_u * tnorm(src.u),
+        du, _ = fgmres_(
+            ctx.F, src.u, torch.zeros_like(src.u), tol=rel_u * norm_(src.u),
             maxiter=cfg.inner_maxiter, M=mf,
         )
         tmp = src.p - ctx.B(du)
         # The reference keys this tolerance off ||src.p|| (NSSolver.hpp:228)
         # while solving with rhs ``tmp``; when src.p == 0 that is tol = 0 on
         # a nonzero system -- floor it at machine precision of the rhs.
-        dp = solve_p(tmp, torch.maximum(rel_p * tnorm(src.p), 100.0 * eps * tnorm(tmp)))
+        dp = solve_p(tmp, torch.maximum(rel_p * norm_(src.p), 100.0 * eps * norm_(tmp)))
         return Blocks(u=du, p=dp)
 
     return vmult
@@ -736,6 +767,38 @@ def _cast_ctx(ctx: LinearContext, dtype: torch.dtype) -> LinearContext:
     )
 
 
+def check_batched(disc, kind: int, cfg: PrecondConfig | None, solver_type: int = 1) -> None:
+    """Raise ``NotImplementedError`` (naming ROADMAP A.D8b) for a
+    combination the ensemble cannot batch yet.  Batched: FGMRES (1) or GMRES
+    (0) + blockTriangular on the structured lattice, the GMRES-smoothed
+    V-cycle (or Jacobi without a chain), the Cahouet-Chabard Schur leg and
+    the nested inner solves, in any ``vmult_dtype``/``mg_dtype``."""
+    cfg = cfg or PrecondConfig()
+    left_out = []
+    if solver_type not in (0, 1):
+        left_out.append("BiCGStab (solver_type 2)")
+    if kind != 1:
+        left_out.append(f"{PRECONDITIONER_NAMES.get(kind, kind)} (prec_type {kind})")
+    if cfg.schur_mode != "cahouet":
+        left_out.append(f"schur_mode={cfg.schur_mode!r}")
+    if cfg.mg_smoother != "gmres":
+        left_out.append(f"mg_smoother={cfg.mg_smoother!r}")
+    if cfg.inner_mode == "fixed":
+        left_out.append("inner_mode='fixed'")
+    if cfg.krylov_cycle_dtype is not None:
+        left_out.append("GMRES-IR cycles (krylov_cycle_dtype)")
+    if cfg.direct_lu:
+        left_out.append("direct_lu")
+    if not isinstance(disc, Disc):
+        left_out.append("the -M simplex backend")
+    if left_out:
+        raise NotImplementedError(
+            "the ensemble batches FGMRES/GMRES + blockTriangular with the "
+            "Cahouet-Chabard leg on the structured channel; not ported yet: "
+            + ", ".join(left_out) + " (ROADMAP.md A.D8b)"
+        )
+
+
 def make_krylov_lo(
     kind: int,
     ctx: LinearContext,
@@ -790,7 +853,6 @@ def make_preconditioner(
             "Invalid preconditioner type. Use 0: blockDiagonal, "
             "1: blockTriangular, 2: aSIMPLE."
         )  # NSSolver.cpp:667
-
     out_dtype = ctx.disc.dtype
     vd = torch_dtype(cfg.vmult_dtype)
     mixed = vd is not None and vd != out_dtype

@@ -12,6 +12,12 @@ preconditions its stationary velocity-block inner solves with Trilinos
 ``PreconditionAMG`` (NSSolverStationary.hpp:225-231).  Dirichlet rows and
 non-existent lattice lanes are identity/diagonal rows; transfers zero them
 so coarse corrections stay in the interior subspace.
+
+Both V-cycles also run an ensemble's B members at once (a [B] ``nu``,
+batched vectors): the hierarchy (geometry, transfers, the Lp cycle's
+spectral estimate) is shared, the per-level diagonals and linearizations
+are per member, the GMRES smoother solves one least-squares problem per
+member, and the coarse solves are the batched Krylov solvers.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import torch
 from navier_stokes_solver_tpu_torch.elements import make_taylor_hood
 from navier_stokes_solver_tpu_torch.elements.taylor_hood import lagrange_values
 from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry, make_fe_space
-from navier_stokes_solver_tpu_torch.krylov import cg, gmres, tvdot
+from navier_stokes_solver_tpu_torch.krylov import bnorm, bvdot, cg, cg_batched, gmres, gmres_batched, tvdot
+from navier_stokes_solver_tpu_torch.ops.blocks import is_batched
 from navier_stokes_solver_tpu_torch.ops.disc import Disc, MGEdge, make_disc
 from navier_stokes_solver_tpu_torch.ops.matfree import (
     LinearizationQ,
@@ -47,9 +54,13 @@ __all__ = [
 SMOOTHERS = ("gmres", "jacobi", "schwarz")
 
 
-def as_dtype_scalar(v: float, dtype: torch.dtype) -> float:
+def as_dtype_scalar(v, dtype: torch.dtype):
     """``v`` rounded to ``dtype`` (a Python float), so that a cast context's
-    scalars carry exactly the precision of its tensors."""
+    scalars carry exactly the precision of its tensors; an ensemble's [B]
+    viscosities are cast as a tensor (the same rounding, member by
+    member)."""
+    if is_batched(v):
+        return v.to(dtype)
     return float(torch.tensor(v, dtype=dtype))
 
 
@@ -135,7 +146,7 @@ def _zero_constrained(disc: Disc, x):
     return torch.where(disc.u_active & ~disc.u_dirichlet, x, 0.0)
 
 
-def _gmres_smooth(A, dinv, b, x, k: int):
+def _gmres_smooth(A, dinv, b, x, k: int, *, batched: bool = False):
     """``k`` fixed steps of Jacobi-preconditioned GMRES as a smoother.
 
     Chebyshev assumes a real positive spectrum; the Jacobi-normalized
@@ -145,34 +156,42 @@ def _gmres_smooth(A, dinv, b, x, k: int):
     residual.  The smoother is (mildly) nonlinear; every consumer is a
     flexible method, so that is safe.  No host synchronization: the
     (k+1) x k least-squares problem is solved on the device.
+
+    ``batched``: ``b`` and ``x`` [B, ...] hold B members, each with its
+    own inner products, Hessenberg matrix [B, k+1, k] and least-squares
+    solve.  A member with a zero residual gets a zero correction (the
+    clamps and the isfinite guard keep its 0/0 out).
     """
+    dot = bvdot if batched else tvdot
+    # a per-member scalar [B] against a [B, ...] vector; a 0-dim one as is
+    col = (lambda v: v.reshape(v.shape + (1,) * (b.dim() - 1))) if batched else (lambda v: v)
     r0 = b - A(x)
     tiny = torch.finfo(r0.dtype).tiny
-    beta = torch.sqrt(tvdot(r0, r0))
-    V = [r0 * (1.0 / torch.clamp_min(beta, tiny))]
+    beta = torch.sqrt(dot(r0, r0))
+    V = [r0 * col(1.0 / torch.clamp_min(beta, tiny))]
     Z = []
-    H = r0.new_zeros((k + 1, k))
+    H = r0.new_zeros(b.shape[:1] * batched + (k + 1, k))
     for j in range(k):
         z = dinv * V[j]
         Z.append(z)
         w = A(z)
         for i in range(j + 1):
-            hij = tvdot(V[i], w)
-            w = w - hij * V[i]
-            H[i, j] = hij
-        hj1 = torch.sqrt(tvdot(w, w))
-        H[j + 1, j] = hj1
-        V.append(w / torch.clamp_min(hj1, tiny))
+            hij = dot(V[i], w)
+            w = w - col(hij) * V[i]
+            H[..., i, j] = hij
+        hj1 = torch.sqrt(dot(w, w))
+        H[..., j + 1, j] = hj1
+        V.append(w / col(torch.clamp_min(hj1, tiny)))
     # least squares min || beta e1 - H y ||  via normal equations on the
     # tiny (k+1) x k Hessenberg (well-conditioned for a smoother; k <= 4);
     # solve_ex skips the error-check synchronization, the isfinite guard
     # below covers a singular system
-    HtH = H.T @ H + tiny * torch.eye(k, dtype=H.dtype, device=H.device)
-    y, _ = torch.linalg.solve_ex(HtH, H[0] * beta)
+    HtH = H.mT @ H + tiny * torch.eye(k, dtype=H.dtype, device=H.device)
+    y, _ = torch.linalg.solve_ex(HtH, H[..., 0, :] * beta[..., None])
     y = torch.where(torch.isfinite(y), y, 0.0)
-    dx = y[0] * Z[0]
+    dx = col(y[..., 0]) * Z[0]
     for j in range(1, k):
-        dx = dx + y[j] * Z[j]
+        dx = dx + col(y[..., j]) * Z[j]
     return x + dx
 
 
@@ -274,9 +293,18 @@ def make_mg_vcycle(
     cell-block additive Schwarz sweep, which also preconditions the coarse
     solve).  The Chebyshev smoothers take one spectral estimate, on the
     finest level, and reuse it below.
+
+    A [B] ``nu`` (an ensemble) builds one cycle for the B members: state
+    [B, 2, NY, NX], per-member diagonals, the batched GMRES smoother and
+    batched coarse solves.  Only the GMRES smoother has a batched form.
     """
     if smoother not in SMOOTHERS:
         raise ValueError(f"unknown mg_smoother {smoother!r}; one of {SMOOTHERS}")
+    batched = is_batched(nu)
+    if batched and smoother != "gmres":
+        raise NotImplementedError(
+            f"the batched V-cycle has only the GMRES smoother, not {smoother!r} (ROADMAP.md A.D8b)"
+        )
     out_dtype = disc.dtype
     if dtype is not None and dtype != disc.dtype:
         disc = disc.to(dtype)
@@ -315,20 +343,20 @@ def make_mg_vcycle(
         if u is not None and not stokes:
             # state restriction: nodal evaluation of the (continuous) fine
             # function at coarse nodes
-            u = torch.einsum("Yy,cyx,Xx->cYX", edge.Evy, u, edge.Evx)
+            u = torch.einsum("Yy,...yx,Xx->...YX", edge.Evy, u, edge.Evx)
         d = edge.coarse
 
     def restrict(edge: MGEdge, r):
-        return torch.einsum("yY,cyx,xX->cYX", edge.Pvy, r, edge.Pvx)
+        return torch.einsum("yY,...yx,xX->...YX", edge.Pvy, r, edge.Pvx)
 
     def prolong(edge: MGEdge, x):
-        return torch.einsum("Yy,cyx,Xx->cYX", edge.Pvy, x, edge.Pvx)
+        return torch.einsum("Yy,...yx,Xx->...YX", edge.Pvy, x, edge.Pvx)
 
     if smoother == "gmres":
 
         def smooth(A, prec, b, x):
             x = torch.zeros_like(b) if x is None else x
-            return _gmres_smooth(A, prec, b, x, smooth_degree)
+            return _gmres_smooth(A, prec, b, x, smooth_degree, batched=batched)
 
     else:
 
@@ -340,15 +368,12 @@ def make_mg_vcycle(
         if li == len(levels) - 1:
             # CG is only valid on the SPD Stokes block; the NS-regime F is
             # nonsymmetric (convection), so the coarse solve is GMRES there
-            solver = cg if (stokes or state_u is None) else gmres
-            x, _ = solver(
-                A,
-                b,
-                torch.zeros_like(b),
-                tol=coarse_rtol * torch.sqrt(tvdot(b, b)),
-                maxiter=coarse_iters,
-                M=_as_prec(prec),
-            )
+            spd = stokes or state_u is None
+            if batched:
+                solver, tol = (cg_batched if spd else gmres_batched), coarse_rtol * bnorm(b)
+            else:
+                solver, tol = (cg if spd else gmres), coarse_rtol * torch.sqrt(tvdot(b, b))
+            x, _ = solver(A, b, torch.zeros_like(b), tol=tol, maxiter=coarse_iters, M=_as_prec(prec))
             return x
         x = smooth(A, prec, b, None)
         r = _zero_constrained(d, b - A(x))
@@ -363,10 +388,12 @@ def make_mg_vcycle(
     return M
 
 
-def make_lp_vcycle(disc: Disc):
+def make_lp_vcycle(disc: Disc, *, batched: bool = False):
     """Build ``M(b) -> x``: one V(2, 2) cycle on the pressure Laplacian (the
     (1/dt) Lp^-1 leg of the Cahouet-Chabard Schur approximation,
-    ``ops.matfree.apply_Lp``), in the dtype of ``disc``.
+    ``ops.matfree.apply_Lp``), in the dtype of ``disc``; ``batched``: ``b``
+    [B, NPy, NPx] holds B members (Lp is the same for all: only the coarse
+    CG runs per member).
 
     The hierarchy reuses the velocity chain's coarse discretizations with
     the pressure-lattice transfers (``MGEdge.Ppx/Ppy``).  Lp is SPD:
@@ -403,18 +430,19 @@ def make_lp_vcycle(disc: Disc):
         return torch.where(d.p_free, x, 0.0)
 
     def restrict(edge: MGEdge, r):
-        return torch.einsum("yY,yx,xX->YX", edge.Ppy, r, edge.Ppx)
+        return torch.einsum("yY,...yx,xX->...YX", edge.Ppy, r, edge.Ppx)
 
     def prolong(edge: MGEdge, x):
-        return torch.einsum("Yy,yx,Xx->YX", edge.Ppy, x, edge.Ppx)
+        return torch.einsum("Yy,...yx,Xx->...YX", edge.Ppy, x, edge.Ppx)
 
     def vcycle(li: int, b):
         d, A, dinv, edge = levels[li]
         if li == len(levels) - 1:
-            x, _ = cg(
-                A, b, torch.zeros_like(b), tol=5e-2 * torch.sqrt(tvdot(b, b)),
-                maxiter=48, M=lambda r: dinv * r,
-            )
+            if batched:
+                solver, tol = cg_batched, 5e-2 * bnorm(b)
+            else:
+                solver, tol = cg, 5e-2 * torch.sqrt(tvdot(b, b))
+            x, _ = solver(A, b, torch.zeros_like(b), tol=tol, maxiter=48, M=lambda r: dinv * r)
             return x
         x = _chebyshev(A, dinv, cheb, b)
         r = interior(d, b - A(x))

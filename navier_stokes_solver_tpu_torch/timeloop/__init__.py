@@ -6,6 +6,7 @@ from navier_stokes_solver_tpu_torch.timeloop.fused import (
     StepStats,
     TimeState,
     initial_state,
+    make_batched_time_step,
     make_stokes_init,
     make_time_step,
     run_time_loop,
@@ -16,6 +17,7 @@ __all__ = [
     "StepStats",
     "initial_state",
     "make_time_step",
+    "make_batched_time_step",
     "make_stokes_init",
     "run_time_loop",
 ]

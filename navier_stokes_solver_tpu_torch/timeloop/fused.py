@@ -18,6 +18,10 @@ that reads back one scalar per Newton iteration and per line-search trial.
 The state's scalars stay 0-dim tensors on the disc's device, in the JAX
 state's dtypes: ``step`` and the iteration counts int32, ``time``, ``drag``,
 ``lift`` and the residual in the disc's dtype.
+
+``make_batched_time_step`` is the same step for an ensemble's B members
+(``ensemble/``; the JAX package's ``vmap`` of the step): every leaf gains a
+leading member axis and each loop level keeps a per-member active mask.
 """
 
 from __future__ import annotations
@@ -30,12 +34,14 @@ import torch
 
 from navier_stokes_solver_tpu_torch.api import kernels
 from navier_stokes_solver_tpu_torch.ops import Blocks
+from navier_stokes_solver_tpu_torch.precond.blocks import check_batched
 
 __all__ = [
     "TimeState",
     "StepStats",
     "initial_state",
     "make_time_step",
+    "make_batched_time_step",
     "make_stokes_init",
     "run_time_loop",
 ]
@@ -60,9 +66,11 @@ def _int32(n: int, device) -> torch.Tensor:
     return torch.tensor(n, dtype=torch.int32, device=device)
 
 
-def initial_state(disc) -> TimeState:
+def initial_state(disc, batch: int | None = None) -> TimeState:
+    """The zero state at step 0; with ``batch``, every leaf broadcast over a
+    leading axis of B members (contiguous, as the kernels read it)."""
     z = torch.zeros((), dtype=disc.dtype, device=disc.device)
-    return TimeState(
+    ts = TimeState(
         solution=Blocks(u=disc.zeros_u(), p=disc.zeros_p()),
         time=z,
         step=_int32(0, disc.device),
@@ -73,6 +81,20 @@ def initial_state(disc) -> TimeState:
             krylov_iters=_int32(0, disc.device),
             final_residual=z,
         ),
+    )
+    if batch is None:
+        return ts
+    return _map_state(lambda t: t.expand((batch,) + t.shape).contiguous(), ts)
+
+
+def _map_state(fn, ts: TimeState) -> TimeState:
+    return TimeState(
+        solution=Blocks(*map(fn, ts.solution)),
+        time=fn(ts.time),
+        step=fn(ts.step),
+        drag=fn(ts.drag),
+        lift=fn(ts.lift),
+        stats=StepStats(*map(fn, ts.stats)),
     )
 
 
@@ -111,57 +133,146 @@ def make_time_step(
 
     ``consistent``: the Jacobian-consistent Newton continuity rhs
     (``ops.matfree.residual``)."""
+    return _make_step(
+        disc, False, solver_type=solver_type, prec_type=prec_type, tol=tol, newton_max=newton_max,
+        newton_tol=newton_tol, krylov_maxiter=krylov_maxiter, inlet_amp=inlet_amp, basis=basis,
+        precond_cfg=precond_cfg, consistent=consistent,
+    )
+
+
+def make_batched_time_step(
+    disc,
+    *,
+    solver_type: int = 1,
+    prec_type: int = 1,
+    tol: float = 1e-9,
+    newton_max: int = 10,
+    newton_tol: float = 1e-9,
+    krylov_maxiter: int = 2000,
+    inlet_amp: float = 0.3,
+    basis: int = 30,
+    precond_cfg=None,
+    consistent: bool = False,
+):
+    """Build ``step(state, nus, dt) -> TimeState`` for B members at once:
+    ``make_time_step``'s step with a leading member axis on every leaf of
+    the state and ``nus`` a [B] tensor in the disc's dtype on its device.
+
+    The JAX package runs it as ``vmap`` over the step, whose loops then run
+    while any member's condition holds, each member keeping its carry once
+    its own condition is false.  Here each loop level has a per-member
+    active mask, read back once per iteration as one [B] row: Newton
+    (``n_iter < newton_max``, ``rn > newton_tol``, no stagnation), the line
+    search (per-member ``alpha`` and acceptance, the last trial standing
+    where nothing was accepted), and the Krylov solves below them
+    (``api.kernels.solve_kernel``'s ``active``).  A member whose Newton
+    loop has ended is selected out with ``torch.where``: its state is
+    unchanged by the later iterations.  So each member's counts are its
+    standalone step's, and its fields differ from that step's by the
+    rounding of the batched products only.
+
+    The inlet lift applies at step 0, which all members share.  The
+    combinations that batch: ``precond.blocks.check_batched``, checked
+    here, once."""
+    check_batched(disc, prec_type, precond_cfg, solver_type)
+    return _make_step(
+        disc, True, solver_type=solver_type, prec_type=prec_type, tol=tol, newton_max=newton_max,
+        newton_tol=newton_tol, krylov_maxiter=krylov_maxiter, inlet_amp=inlet_amp, basis=basis,
+        precond_cfg=precond_cfg, consistent=consistent,
+    )
+
+
+def _pick(mask: np.ndarray, a, b):
+    """``a`` where the host mask is true, else ``b``, per member (the mask
+    [B] against the leading axis of tensors [B, ...], or 0-dim against
+    0-dim ones): no operation where the mask is uniform."""
+    if mask.all():
+        return a
+    if not mask.any():
+        return b
+    m = torch.as_tensor(mask, device=a.device)
+    return torch.where(m.reshape(m.shape + (1,) * (a.dim() - m.dim())), a, b)
+
+
+def _make_step(disc, batched: bool, *, solver_type, prec_type, tol, newton_max, newton_tol,
+               krylov_maxiter, inlet_amp, basis, precond_cfg, consistent):
+    """The step of ``make_time_step`` (``batched`` False: 0-dim scalars) and
+    of ``make_batched_time_step`` (a leading member axis): one Newton and
+    line-search policy, run on host copies of the residual norms with
+    per-member masks -- 0-dim for one member, where every select is
+    uniform and costs nothing."""
 
     def assemble(sol: Blocks, u_old, nu, inv_dt, amp=0.0):
         return kernels.assemble_kernel(
             disc, nu, inv_dt, sol, u_old, amp, stokes=False, consistent=consistent
         )
 
+    def pick(mask, a: Blocks, b: Blocks) -> Blocks:
+        return Blocks(*(_pick(mask, x, y) for x, y in zip(a, b)))
+
     def step(ts: TimeState, nu, dt) -> TimeState:
         inv_dt = 1.0 / dt
         u_old = ts.solution.u
-        amp0 = inlet_amp if int(ts.step) == 0 else 0.0
+        first = ts.step.cpu().numpy() == 0
+        if first.any() and not first.all():
+            raise ValueError("the members of an ensemble step together: mixed step counters")
         sol = ts.solution
-        rhs, rn = assemble(sol, u_old, nu, inv_dt, amp0)
-        prev = rn + 1.0
-        n_iter = kry = 0
-        stall = False
-        while n_iter < newton_max and bool(rn > newton_tol) and not stall:
+        rhs, rn = assemble(sol, u_old, nu, inv_dt, inlet_amp if first.all() else 0.0)
+        rn_h = rn.cpu()  # host copies in the residual's dtype, as the JAX carry's
+        prev = rn_h + 1.0
+        n_iter = np.zeros(rn_h.shape, np.int64)
+        kry = np.zeros(rn_h.shape, np.int64)
+        stall = np.zeros(rn_h.shape, bool)
+        while True:
+            act = (n_iter < newton_max) & (rn_h > newton_tol).numpy() & ~stall
+            if not act.any():
+                break
             zero = Blocks(u=torch.zeros_like(sol.u), p=torch.zeros_like(sol.p))
-            delta, info = _solve_tangent(
-                disc, nu, inv_dt, sol, rhs, zero, stokes=False,
-                solver_type=solver_type, prec_type=prec_type, tol=tol,
-                maxiter=krylov_maxiter, basis=basis, precond_cfg=precond_cfg,
+            delta, info = kernels.solve_kernel(
+                disc, nu, inv_dt, sol, rhs, zero, 0.0, tol, stokes=False,
+                solver_type=solver_type, prec_type=prec_type, variant="unsteady",
+                maxiter=krylov_maxiter, project_x0=False, precond_cfg=precond_cfg,
+                basis=basis, active=act if batched else None,
             )
-            stall = info.iters == 0
+            stall = np.where(act, np.asarray(info.iters) == 0, stall)
             # backtracking line search (NSSolver.cpp:727-742); alpha in the
             # residual's dtype, as the JAX carry holds it.  Without an
             # accepted trial the last one stands.
-            alpha = torch.ones((), dtype=rn.dtype)
-            accepted = False
-            while not accepted and bool(alpha > 1e-12):
-                a = float(alpha)
-                trial = Blocks(u=sol.u + a * delta.u, p=sol.p + a * delta.p)
-                t_rhs, t_rn = assemble(trial, u_old, nu, inv_dt)
-                accepted = bool(t_rn <= prev)
-                alpha = alpha * 0.1
-            sol, rhs, rn = trial, t_rhs, t_rn
-            prev = rn
-            n_iter += 1
-            kry += info.iters
+            alpha = torch.ones(rn_h.shape, dtype=rn_h.dtype)
+            accepted = np.zeros(rn_h.shape, bool)
+            t_sol, t_rhs, t_rn, t_rn_h = sol, rhs, rn, rn_h
+            while True:
+                ls = act & ~accepted & (alpha > 1e-12).numpy()
+                if not ls.any():
+                    break
+                if batched:
+                    a = alpha.to(device=disc.device, dtype=sol.u.dtype)
+                    trial = Blocks(u=sol.u + a.reshape(-1, 1, 1, 1) * delta.u,
+                                   p=sol.p + a.reshape(-1, 1, 1) * delta.p)
+                else:
+                    a = float(alpha)
+                    trial = Blocks(u=sol.u + a * delta.u, p=sol.p + a * delta.p)
+                r_rhs, r_rn = assemble(trial, u_old, nu, inv_dt)
+                r_rn_h = r_rn.cpu()
+                t_sol, t_rhs, t_rn = pick(ls, trial, t_sol), pick(ls, r_rhs, t_rhs), _pick(ls, r_rn, t_rn)
+                t_rn_h = _pick(ls, r_rn_h, t_rn_h)
+                accepted = accepted | (ls & (r_rn_h <= prev).numpy())
+                alpha = _pick(ls, alpha * 0.1, alpha)
+            sol, rhs, rn = pick(act, t_sol, sol), pick(act, t_rhs, rhs), _pick(act, t_rn, rn)
+            rn_h = _pick(act, t_rn_h, rn_h)
+            prev = _pick(act, rn_h, prev)
+            n_iter = n_iter + act
+            kry = kry + np.where(act, info.iters, 0)
 
         drag, lift = kernels.lift_drag_kernel(disc, nu, sol)
+        count = lambda c: torch.as_tensor(c.astype(np.int32), device=disc.device)
         return TimeState(
             solution=sol,
             time=ts.time + dt,
             step=ts.step + 1,
             drag=drag,
             lift=lift,
-            stats=StepStats(
-                newton_iters=_int32(n_iter, disc.device),
-                krylov_iters=_int32(kry, disc.device),
-                final_residual=rn,
-            ),
+            stats=StepStats(newton_iters=count(n_iter), krylov_iters=count(kry), final_residual=rn),
         )
 
     return step

@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 scripts/torch_apply_f_ab.py --root DIR --tag NAME [--save FILE.npz]
-    python3 scripts/torch_apply_f_ab.py --root DIR --tag NAME --kernel-only
+    python3 scripts/torch_apply_f_ab.py --root DIR --tag NAME --kernel-only [--mesh NX,NY ...]
     python3 scripts/torch_apply_f_ab.py --compare A.npz B.npz
 
 Imports ``navier_stokes_solver_tpu_torch`` from the checkout ``DIR`` (and
@@ -19,6 +19,11 @@ at 100x70 Q3/Q2 float32 in both regimes, on inputs made from a numpy seed:
   * per outer FGMRES iteration of a tangent solve at the bench
     configuration (state zero, nu = 1/90): device kernels, device ms and
     wall ms, from profiler windows of 1 and 5 outer iterations.
+
+``--kernel-only`` times the two kernels alone (device ms per call, 200
+back-to-back launches): ``cell_apply_F`` in both regimes and
+``scatter_v_bc`` with its boundary rows, at every multigrid level of
+100x70 Q3/Q2, or at the ``--mesh`` shapes given (Q3/Q2, f32).
 
 It prints one JSON line.  ``--save`` writes the f32 outputs of
 ``cell_apply_F`` and ``apply_F``; ``--compare`` prints, per output, the
@@ -87,10 +92,12 @@ def measure(root: str, tag: str, save: str | None):
         np.savez(save, **arrays)
 
 
-def kernel_only(root: str, tag: str):
+def kernel_only(root: str, tag: str, meshes=None):
     """Device ms of one cell-kernel call at 100x70 and every multigrid
-    level, f32, both regimes: ``cell_apply_F_lattice`` where the checkout
-    has it, else ``cell_apply_F`` on gathered DoFs."""
+    level (or at ``meshes``), f32, both regimes: ``cell_apply_F_lattice``
+    where the checkout has it, else ``cell_apply_F`` on gathered DoFs; and
+    of one ``scatter_v_bc`` call with the boundary rows where the checkout
+    has it."""
     sys.path.insert(0, os.path.abspath(root))
     cs = _chip_smoke()
     device = cs.phase_device()
@@ -99,16 +106,25 @@ def kernel_only(root: str, tag: str):
     from navier_stokes_solver_tpu_torch.ops import cell_kernel
     from navier_stokes_solver_tpu_torch.ops.matfree import _gather_v
 
+    try:
+        from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc
+    except ImportError:  # the first version: no scatter kernel
+        scatter_v_bc = None
     lattice = hasattr(cell_kernel, "cell_apply_F_lattice")
     out = {"tag": tag, "card": cs.nvidia_smi(), "entry": "lattice" if lattice else "gathered"}
-    for mesh in cs.mg_shapes(device, cs.BENCH_MESH):
-        disc, linq, x, _ = cs.kernel_case(device, mesh, (3, 2), torch.float32)
+    for mesh in meshes or cs.mg_shapes(device, cs.BENCH_MESH):
+        disc, linq, x, bc = cs.kernel_case(device, mesh, (3, 2), torch.float32)
         x_in = x if lattice else _gather_v(disc, x)
         fn = cell_kernel.cell_apply_F_lattice if lattice else cell_kernel.cell_apply_F
         for stokes in (True, False):
             lin = None if stokes else linq
             out[f"{mesh[0]}x{mesh[1]} {'stokes' if stokes else 'newton'}"] = cs.device_ms(
                 lambda: fn(disc, cs.KERNEL_NU, cs.KERNEL_INV_DT, lin, x_in, stokes=stokes)
+            )
+        if scatter_v_bc is not None:
+            loc = fn(disc, cs.KERNEL_NU, cs.KERNEL_INV_DT, linq, x_in, stokes=False)
+            out[f"{mesh[0]}x{mesh[1]} scatter bc"] = cs.device_ms(
+                lambda: scatter_v_bc(disc, loc, bc_diag=bc, x_u=x)
             )
     print(json.dumps(out))
 
@@ -129,12 +145,15 @@ def main():
     p.add_argument("--save", help="write the f32 outputs to this .npz")
     p.add_argument("--compare", nargs=2, metavar="NPZ", help="compare two --save files")
     p.add_argument("--kernel-only", action="store_true",
-                   help="only time the cell kernel at every multigrid level")
+                   help="only time the kernels, at every multigrid level or at --mesh")
+    p.add_argument("--mesh", action="append", default=None, metavar="NX,NY",
+                   help="with --kernel-only: a Q3/Q2 shape to time (repeatable)")
     a = p.parse_args()
     if a.compare:
         compare(*a.compare)
     elif a.root and a.kernel_only:
-        kernel_only(a.root, a.tag)
+        meshes = [tuple(int(v) for v in m.split(",")) for m in a.mesh] if a.mesh else None
+        kernel_only(a.root, a.tag, meshes)
     elif a.root:
         measure(a.root, a.tag, a.save)
     else:

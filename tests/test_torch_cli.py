@@ -82,6 +82,7 @@ def test_the_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'navier_stokes_solver_tpu' or m.startswith('navier_stokes_solver_tpu.'))\n"
         "assert 'navier_stokes_solver_tpu_torch.cli.stationary' in names, names\n"
+        "assert 'navier_stokes_solver_tpu_torch.ensemble.sweep' in names, names\n"
         "print(len(names), bad)\n"
     )
     out = subprocess.run(
