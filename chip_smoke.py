@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Phases (each raises on failure; none catches another's).  They run in this
-order, except that phase 21 runs right after phase 4, phase 19 right after
-phase 10 (on its solver), phase 23 after phase 19, phase 8 after phase 23,
-and phases 8, 12, 13, 14, 18 and 22 together after it: the CPU sides of the
-card-vs-CPU phases (8, 12, 14, 18, 22) run in three spawned worker
-processes meanwhile (18's and 22's when a worker is free), which are
-joined before phase 15 -- so the timed paths before and after them have
-the host to themselves; phase 20 runs after phase 16:
+order, except that phases 21 and 24 run right after phase 4, phase 19 right
+after phase 10 (on its solver), phases 23, 25 and 26 after phase 19, phase
+8 after phase 26, and phases 8, 12, 13, 14, 18, 22 and 27 together after
+it: the CPU sides of the card-vs-CPU phases (8, 12, 14, 18, 22, 27) run in
+three spawned worker processes meanwhile (18's, 22's and 27's when a
+worker is free), which are joined before phase 15 -- so the timed paths
+before and after them have the host to themselves; phase 20 runs after
+phase 16, and phase 28 after phase 17:
 
   1. device   -- require CUDA; print the card (nvidia-smi name and power
                 limit) and the torch / CUDA versions;
@@ -35,7 +36,11 @@ the host to themselves; phase 20 runs after phase 16:
                 its plain version's time, the library yardstick's and the
                 bound;
   5. launches -- one ``apply_F`` on CUDA in a ``torch.profiler`` window must
-                run exactly two device kernels, these two;
+                run exactly two device kernels, these two (the tracer drops
+                a trace's first activities: every trace runs a warm-up
+                call, three marker kernels, the recorded call and a marker,
+                and is taken again, up to five times, when it lacks the
+                leading or the trailing markers: ``profile_call``);
   6. main     -- the stationary 100x70 Q3/Q2 solve at the tuned ``bench.py``
                 configuration through ``NSSolverStationary``, ``SOLVES``
                 times (once: a depth cut): the drag must match
@@ -177,13 +182,45 @@ the host to themselves; phase 20 runs after phase 16:
                 ``batch_efficiency_vs_single`` = t_1 B / t_B, each beside
                 the card's name and power limit; then phase 7's profile of
                 one outer iteration of the batched tangent solve;
- 24. report   -- one JSON line of per-kernel results (launches from phase
-                11 and times at its finest level, 100x33 Stokes, with every
-                path's launches -- the fused 300x100 path's and the
-                ensemble's among them, 0 on the simplex paths, which run no
-                hand-written kernel -- and every shape's times beside them,
-                the batched launches' included), the nvidia-smi line, then
-                the final ``{"ok": true, "device": ...}`` line.
+ 24. cavity-kernels -- both kernels at every level of the 128x128 Q2/Q1
+                lid-driven cavity's multigrid chain (128^2 down to 8^2: a
+                cavity at every level, square cells, no inactive node, the
+                lid's corner nodes Dirichlet), f32 and f64, both regimes,
+                with phase 3's checks and tolerances; then phase 4's
+                timings at 128x128;
+ 25. cavity-ghia -- the slice at full width: the cavity at 128x128 Q2/Q1
+                (148,739 DoFs), Re 100, ``NSSolverStationary.solve_direct``
+                with the options of tests/test_cavity.py (FGMRES,
+                blockTriangular, tol 1e-10, basis 60), f32 preconditioner,
+                the Jacobian-consistent continuity sign: per tangent solve
+                the outers, wall and launches; the final Newton residual
+                (<= 1e-9), both centerline deviations from Ghia, Ghia &
+                Shin (1982) Tables I-II (each < 2.5e-2), launches of both
+                kernels (counts zeroed just before, read just after); then
+                phase 7's profile in the Newton regime;
+ 26. cavity-cli -- ``cli.stationary --cavity -m 32,32 -r 100 --output``
+                (the continuation, ``output()`` at each of its call sites)
+                into a temporary directory: the record's two files exist
+                and decode to ``fields()`` at the cell corners bit for bit;
+                both kernels launched;
+ 27. cavity-check -- a 32x32 Q2/Q1 cavity with a body force at Re 100,
+                ``solve_direct``, all-f64, on the card against the CPU:
+                outers within 1 per tangent solve, fields within 1e-6 of
+                their magnitude (the pressure's mean removed);
+ 28. native-io -- the native C++ IO library must build (``g++``): phase
+                9's 300x100 Q3/Q2 state through the native and the Python
+                VTU writers (byte for byte, both timed), config 3's state
+                through ``write_vtu_tri`` (decoded to its fields), and
+                phase 17's curved MSH2 mesh through the native and the
+                Python gmsh readers (arrays equal, both timed);
+ 29. report   -- one JSON line of per-kernel results (launches from phase
+                25 and times at its finest level, 128x128 Q2/Q1 Stokes,
+                with every path's launches -- the fused 300x100 path's,
+                the ensemble's and the cavity CLI's among them, 0 on the
+                simplex paths, which run no hand-written kernel -- and every
+                shape's times beside them, the batched launches' included),
+                the nvidia-smi line, then the final ``{"ok": true,
+                "device": ...}`` line.
 
 If the script outgrows its time budget, depth is cut, in this order: the
 stationary bench solve to one run (``SOLVES``), then the unsteady run to
@@ -195,7 +232,9 @@ one step (``FUSED_MAIN_STEPS``; its checkpoint resume is still the one
 from phase 9's state, and fused-check keeps its own round trip) -- never a
 mesh, config3's three steps, the simplex check, the fused check, the
 unsteady check's second step, the ensemble's B = 64 or its two timed
-steps.  The cuts are printed.
+steps, nor a kernel check's shape.  If the cavity phases ever need room,
+cavity-ghia goes to 64x64 (Ghia's own 129^2 velocity grid).  The cuts are
+printed.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -207,6 +246,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -224,6 +264,11 @@ KERNEL_NU, KERNEL_INV_DT = 0.05, 100.0  # inv_dt of the unsteady path (dt 0.01)
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 TIMED_CALLS, HOST_CALLS, PLAIN_CALLS = 200, 50, 20
 OUTER_WINDOW = 4
+# profiler windows (``profile_call``): a recorded call bracketed by marker
+# kernels, taken again when the tracer dropped the markers
+PROFILE_ATTEMPTS, PROFILE_LEAD = 5, 3
+PROFILE_MARKER, PROFILE_MARKER_CYCLES = "spin_kernel", 1000
+PROFILE_WINDOWS = []  # per window: (traces taken again, leading markers the tracer dropped)
 SOLVES = 1  # stationary runs (cut from 2 to 1 to make room for phases 12-14)
 # the unsteady north star (BASELINE.json): 300x100 Q3/Q2, Re 100, dt 0.01
 UNSTEADY_MESH = (300, 100)
@@ -344,6 +389,30 @@ ENSEMBLE_METRIC = "ensemble_sweep_60x40_B64_tol1e-09_schurcahouet"  # PERF_NORTH
 ENSEMBLE_CHECK_MESH = (16, 8)
 ENSEMBLE_CHECK_RE = (20.0, 60.0, 100.0)
 ENSEMBLE_CHECK_STEPS = 2
+# the lid-driven cavity (geometry/cavity.py): Ghia, Ghia & Shin, J. Comput.
+# Phys. 48 (1982), Re 100, at 128x128 Q2/Q1 (148,739 DoFs; twice Ghia's 129^2
+# grid in each direction) through solve_direct with the options of
+# tests/test_cavity.py:111-124, f32 preconditioner, and the Jacobian-consistent
+# continuity sign (cavity_solver)
+CAVITY_MESH = (128, 128)
+CAVITY_DOFS = 148_739
+CAVITY_CHAIN = [(128, 128), (64, 64), (32, 32), (16, 16), (8, 8)]
+CAVITY_RE = 100.0
+GHIA_GATE = 2.5e-2
+# Ghia et al. (1982) Table I: u along the vertical centerline x = 0.5, Re 100
+# (y, u); Table II: v along the horizontal centerline y = 0.5 (x, v)
+GHIA_U = [(1.0000, 1.00000), (0.9766, 0.84123), (0.9688, 0.78871), (0.9609, 0.73722), (0.9531, 0.68717),
+          (0.8516, 0.23151), (0.7344, 0.00332), (0.6172, -0.13641), (0.5000, -0.20581), (0.4531, -0.21090),
+          (0.2813, -0.15662), (0.1719, -0.10150), (0.1016, -0.06434), (0.0703, -0.04775), (0.0625, -0.04192),
+          (0.0547, -0.03717), (0.0000, 0.00000)]
+GHIA_V = [(1.0000, 0.00000), (0.9688, -0.05906), (0.9609, -0.07391), (0.9531, -0.08864), (0.9453, -0.10313),
+          (0.9063, -0.16914), (0.8594, -0.22445), (0.8047, -0.24533), (0.5000, 0.05454), (0.2344, 0.17527),
+          (0.2266, 0.17507), (0.1563, 0.16077), (0.0938, 0.12317), (0.0781, 0.10890), (0.0703, 0.10091),
+          (0.0625, 0.09233), (0.0000, 0.00000)]
+# cavity-cli: the stationary program's continuation with VTU output
+CAVITY_CLI_ARGV = ["--cavity", "-m", "32,32", "-r", "100", "--output", "--quiet"]
+# cavity-check: card against CPU, all-f64, with a body force (cavity_force)
+CAVITY_CHECK_MESH = (32, 32)
 SOURCES = {
     "cell_apply_F": "navier_stokes_solver_tpu_torch/csrc/cell_apply_f.cu",
     "scatter_v_bc": "navier_stokes_solver_tpu_torch/csrc/scatter_v.cu",
@@ -392,16 +461,18 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
-def kernel_case(device, mesh, deg, dtype, seed=0):
+def kernel_case(device, mesh, deg, dtype, seed=0, make_geometry=None):
     """Disc, linearization, velocity lattice and boundary diagonal at one
-    shape, made from a numpy seed: ``(disc, linq, x_u, bc_diag)``."""
+    shape of the channel (or of ``make_geometry``'s geometry), made from a
+    numpy seed: ``(disc, linq, x_u, bc_diag)``."""
     import numpy as np
     import torch
 
     from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry, make_fe_space
     from navier_stokes_solver_tpu_torch.ops import Blocks, diag_F, eval_state, make_disc
 
-    disc = make_disc(make_fe_space(make_channel_geometry(*mesh), *deg), dtype, device)
+    geo = (make_geometry or make_channel_geometry)(*mesh)
+    disc = make_disc(make_fe_space(geo, *deg), dtype, device)
     rng = np.random.default_rng(seed)
     put = lambda a: torch.as_tensor(a, device=device).to(dtype)
     x = put(rng.standard_normal((2,) + disc.NV))
@@ -528,7 +599,12 @@ def max_offset(t) -> int:
     return sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
 
 
-def phase_check(device):
+def check_shape(device, mesh, deg, dtype, make_geometry=None, label=""):
+    """Both kernels against their plain versions at one shape and dtype, in
+    both regimes (``cell_apply_F`` through both entry points and a permuted
+    lattice layout within ``KERNEL_TOL``, ``scatter_v_bc`` bit for bit,
+    with and without the boundary rows), after the 32-bit offset check of
+    every operand: returns the largest |kernel - plain| of each."""
     import torch
 
     from navier_stokes_solver_tpu_torch.ops.cell_kernel import (
@@ -540,47 +616,57 @@ def phase_check(device):
     from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
 
     err_a = err_b = 0.0
+    disc, linq, x, bc = kernel_case(device, mesh, deg, dtype, make_geometry=make_geometry)
+    # the layout a multigrid transfer's einsum hands the kernel
+    x_perm = x.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    tol = KERNEL_TOL[str(dtype)[6:]]
+    shape = f"{label}{mesh[0]}x{mesh[1]} Q{deg[0]}/Q{deg[1]} {str(dtype)[6:]}"
+    views = {"lattice view": lattice_view(x, deg[0], *mesh[::-1]), "permuted view": lattice_view(x_perm, deg[0], *mesh[::-1]), "linq.gradu": linq.gradu, "output": _gather_v(disc, x)}
+    offsets = {k: max_offset(v) for k, v in views.items()}
+    print(f"[check] {shape}: largest element offsets {json.dumps(offsets)} (32-bit limit {INDEX_LIMIT})")
+    if max(offsets.values()) >= INDEX_LIMIT:
+        raise RuntimeError(f"an operand at {shape} exceeds the kernels' 32-bit indexing: {offsets}")
+    for stokes in (True, False):
+        tag = f"{shape} {'stokes' if stokes else 'newton'}"
+        args = (disc, KERNEL_NU, KERNEL_INV_DT, None if stokes else linq)
+        want = cell_apply_F_lattice_plain(*args, x, stokes=stokes)
+        got = {
+            "lattice": cell_apply_F_lattice(*args, x, stokes=stokes),
+            "lattice, permuted": cell_apply_F_lattice(*args, x_perm, stokes=stokes),
+            "gathered": cell_apply_F(*args, _gather_v(disc, x), stokes=stokes),
+        }
+        torch.cuda.synchronize()
+        for entry, g in got.items():
+            if not bool(torch.isfinite(g).all()):
+                raise RuntimeError(f"cell_apply_F ({entry}): non-finite output at {tag}")
+            err = (g - want).abs()
+            bad = int((err > tol + tol * want.abs()).sum())
+            e = float(err.max())
+            err_a = max(err_a, e)
+            print(f"[check] cell_apply_F ({entry}) {tag}: max|kernel-plain| {e:.3e} (max|plain| {float(want.abs().max()):.3e}), {bad} entries outside rtol=atol={tol:g}")
+            if bad:
+                raise RuntimeError(f"cell_apply_F ({entry}) disagrees with its plain version at {tag}")
+        for b_, xx, what in ((None, x, "raw"), (bc, x, "bc"), (bc, x_perm, "bc, permuted x")):
+            g = scatter_v_bc(disc, want, bc_diag=b_, x_u=xx)
+            w = scatter_v_bc_plain(disc, want, bc_diag=b_, x_u=xx)
+            e = float((g - w).abs().max())
+            err_b = max(err_b, e)
+            same = torch.equal(g, w)
+            print(f"[check] scatter_v_bc ({what}) {tag}: max|kernel-plain| {e!r}, bitwise equal {same}")
+            if e != 0.0 or not same:
+                raise RuntimeError(f"scatter_v_bc ({what}) is not bit-identical to its plain version at {tag}")
+    return err_a, err_b
+
+
+def phase_check(device):
+    import torch
+
+    err_a = err_b = 0.0
     for mesh, deg in kernel_shapes(device):
         dtypes = (torch.float32, torch.float64) if mesh in (BENCH_MESH, (20, 9), UNSTEADY_MESH, CONFIG1_MESH) else (torch.float32,)
         for dtype in dtypes:
-            disc, linq, x, bc = kernel_case(device, mesh, deg, dtype)
-            # the layout a multigrid transfer's einsum hands the kernel
-            x_perm = x.permute(2, 0, 1).contiguous().permute(1, 2, 0)
-            tol = KERNEL_TOL[str(dtype)[6:]]
-            views = {"lattice view": lattice_view(x, deg[0], *mesh[::-1]), "permuted view": lattice_view(x_perm, deg[0], *mesh[::-1]), "linq.gradu": linq.gradu, "output": _gather_v(disc, x)}
-            offsets = {k: max_offset(v) for k, v in views.items()}
-            print(f"[check] {mesh[0]}x{mesh[1]} Q{deg[0]}/Q{deg[1]} {str(dtype)[6:]}: largest element offsets {json.dumps(offsets)} (32-bit limit {INDEX_LIMIT})")
-            if max(offsets.values()) >= INDEX_LIMIT:
-                raise RuntimeError(f"an operand at {mesh} exceeds the kernels' 32-bit indexing: {offsets}")
-            for stokes in (True, False):
-                tag = f"{mesh[0]}x{mesh[1]} Q{deg[0]}/Q{deg[1]} {str(dtype)[6:]} {'stokes' if stokes else 'newton'}"
-                args = (disc, KERNEL_NU, KERNEL_INV_DT, None if stokes else linq)
-                want = cell_apply_F_lattice_plain(*args, x, stokes=stokes)
-                got = {
-                    "lattice": cell_apply_F_lattice(*args, x, stokes=stokes),
-                    "lattice, permuted": cell_apply_F_lattice(*args, x_perm, stokes=stokes),
-                    "gathered": cell_apply_F(*args, _gather_v(disc, x), stokes=stokes),
-                }
-                torch.cuda.synchronize()
-                for entry, g in got.items():
-                    if not bool(torch.isfinite(g).all()):
-                        raise RuntimeError(f"cell_apply_F ({entry}): non-finite output at {tag}")
-                    err = (g - want).abs()
-                    bad = int((err > tol + tol * want.abs()).sum())
-                    e = float(err.max())
-                    err_a = max(err_a, e)
-                    print(f"[check] cell_apply_F ({entry}) {tag}: max|kernel-plain| {e:.3e} (max|plain| {float(want.abs().max()):.3e}), {bad} entries outside rtol=atol={tol:g}")
-                    if bad:
-                        raise RuntimeError(f"cell_apply_F ({entry}) disagrees with its plain version at {tag}")
-                for b_, xx, what in ((None, x, "raw"), (bc, x, "bc"), (bc, x_perm, "bc, permuted x")):
-                    g = scatter_v_bc(disc, want, bc_diag=b_, x_u=xx)
-                    w = scatter_v_bc_plain(disc, want, bc_diag=b_, x_u=xx)
-                    e = float((g - w).abs().max())
-                    err_b = max(err_b, e)
-                    same = torch.equal(g, w)
-                    print(f"[check] scatter_v_bc ({what}) {tag}: max|kernel-plain| {e!r}, bitwise equal {same}")
-                    if e != 0.0 or not same:
-                        raise RuntimeError(f"scatter_v_bc ({what}) is not bit-identical to its plain version at {tag}")
+            a, b = check_shape(device, mesh, deg, dtype)
+            err_a, err_b = max(err_a, a), max(err_b, b)
     return {"cell_apply_F": err_a, "scatter_v_bc": err_b}
 
 
@@ -589,9 +675,10 @@ def phase_check(device):
 # ---------------------------------------------------------------------------
 
 
-def phase_time(device):
-    """Per kernel: {shape tag: timing record}, f32, at every multigrid
-    level of the three main paths."""
+def time_shape(device, mesh, deg, make_geometry=None, label=""):
+    """Phase 4's records of both kernels at one shape, f32: {kernel: {tag:
+    record}} -- each kernel's device time, host-inclusive time, plain
+    version's time, library yardstick's time and bound, in both regimes."""
     import torch
 
     from navier_stokes_solver_tpu_torch.ops.cell_kernel import (
@@ -602,46 +689,55 @@ def phase_time(device):
     from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
 
     out = {"cell_apply_F": {}, "scatter_v_bc": {}}
-    for mesh in chain_shapes(device):
-        disc, linq, x, bc = kernel_case(device, mesh, (3, 2), torch.float32)
-        shape = f"{mesh[0]}x{mesh[1]} Q3/Q2 float32"
-        for stokes in (True, False):
-            args = (disc, KERNEL_NU, KERNEL_INV_DT, None if stokes else linq, x)
-            rec = {
-                "ms": device_ms(lambda: cell_apply_F_lattice(*args, stokes=stokes)),
-                "host_ms": host_ms(lambda: cell_apply_F_lattice(*args, stokes=stokes)),
-                "plain_ms": device_ms(lambda: cell_apply_F_lattice_plain(*args, stokes=stokes), PLAIN_CALLS),
-                "library_ms": None,
-            }
-            if stokes:
-                # the Stokes element matrix K = nu sum_q w_q (Dx^T Dx + Dy^T Dy)
-                # applied to x_loc [n_v, 2C] in one matmul (mask left out)
-                _, Dx, Dy = disc.cell_tabs
-                K = KERNEL_NU * (Dx.T @ (disc.w_q[:, None] * Dx) + Dy.T @ (disc.w_q[:, None] * Dy))
-                xl = _gather_v(disc, x).reshape(K.shape[0], -1)
-                rec["library_ms"] = device_ms(lambda: torch.matmul(K, xl))
-            rec["bound_ms"], rec["bound_by"] = bound(*cell_apply_cost(disc, stokes))
-            tag = f"{shape} {'stokes' if stokes else 'newton'}"
-            out["cell_apply_F"][tag] = rec
-            print(f"[time] cell_apply_F {tag}: {json.dumps(rec)}")
-        loc = cell_apply_F_lattice(disc, KERNEL_NU, KERNEL_INV_DT, linq, x, stokes=False)
-        # yardstick: one index_add_ of loc onto the lattice (scatter only,
-        # atomics, no boundary rows)
-        NY, NX = disc.NV
-        idx = lattice_view(torch.arange(2 * NY * NX, device=device).view(2, NY, NX), 3, disc.ny, disc.nx)
-        idx = idx.reshape(-1)
-        acc = torch.zeros(2 * NY * NX, dtype=torch.float32, device=device)
-        src = loc.reshape(-1)
+    disc, linq, x, bc = kernel_case(device, mesh, deg, torch.float32, make_geometry=make_geometry)
+    shape = f"{label}{mesh[0]}x{mesh[1]} Q{deg[0]}/Q{deg[1]} float32"
+    for stokes in (True, False):
+        args = (disc, KERNEL_NU, KERNEL_INV_DT, None if stokes else linq, x)
         rec = {
-            "ms": device_ms(lambda: scatter_v_bc(disc, loc, bc_diag=bc, x_u=x)),
-            "host_ms": host_ms(lambda: scatter_v_bc(disc, loc, bc_diag=bc, x_u=x)),
-            "plain_ms": device_ms(lambda: scatter_v_bc_plain(disc, loc, bc_diag=bc, x_u=x), PLAIN_CALLS),
-            "library_ms": device_ms(lambda: acc.index_add_(0, idx, src)),
+            "ms": device_ms(lambda: cell_apply_F_lattice(*args, stokes=stokes)),
+            "host_ms": host_ms(lambda: cell_apply_F_lattice(*args, stokes=stokes)),
+            "plain_ms": device_ms(lambda: cell_apply_F_lattice_plain(*args, stokes=stokes), PLAIN_CALLS),
+            "library_ms": None,
         }
-        rec["bound_ms"], rec["bound_by"] = bound(*scatter_cost(disc, True))
-        tag = f"{shape} bc"
-        out["scatter_v_bc"][tag] = rec
-        print(f"[time] scatter_v_bc {tag}: {json.dumps(rec)}")
+        if stokes:
+            # the Stokes element matrix K = nu sum_q w_q (Dx^T Dx + Dy^T Dy)
+            # applied to x_loc [n_v, 2C] in one matmul (mask left out)
+            _, Dx, Dy = disc.cell_tabs
+            K = KERNEL_NU * (Dx.T @ (disc.w_q[:, None] * Dx) + Dy.T @ (disc.w_q[:, None] * Dy))
+            xl = _gather_v(disc, x).reshape(K.shape[0], -1)
+            rec["library_ms"] = device_ms(lambda: torch.matmul(K, xl))
+        rec["bound_ms"], rec["bound_by"] = bound(*cell_apply_cost(disc, stokes))
+        tag = f"{shape} {'stokes' if stokes else 'newton'}"
+        out["cell_apply_F"][tag] = rec
+        print(f"[time] cell_apply_F {tag}: {json.dumps(rec)}")
+    loc = cell_apply_F_lattice(disc, KERNEL_NU, KERNEL_INV_DT, linq, x, stokes=False)
+    # yardstick: one index_add_ of loc onto the lattice (scatter only,
+    # atomics, no boundary rows)
+    NY, NX = disc.NV
+    idx = lattice_view(torch.arange(2 * NY * NX, device=device).view(2, NY, NX), deg[0], disc.ny, disc.nx)
+    idx = idx.reshape(-1)
+    acc = torch.zeros(2 * NY * NX, dtype=torch.float32, device=device)
+    src = loc.reshape(-1)
+    rec = {
+        "ms": device_ms(lambda: scatter_v_bc(disc, loc, bc_diag=bc, x_u=x)),
+        "host_ms": host_ms(lambda: scatter_v_bc(disc, loc, bc_diag=bc, x_u=x)),
+        "plain_ms": device_ms(lambda: scatter_v_bc_plain(disc, loc, bc_diag=bc, x_u=x), PLAIN_CALLS),
+        "library_ms": device_ms(lambda: acc.index_add_(0, idx, src)),
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(*scatter_cost(disc, True))
+    tag = f"{shape} bc"
+    out["scatter_v_bc"][tag] = rec
+    print(f"[time] scatter_v_bc {tag}: {json.dumps(rec)}")
+    return out
+
+
+def phase_time(device):
+    """Per kernel: {shape tag: timing record}, f32, at every multigrid
+    level of the three main paths."""
+    out = {"cell_apply_F": {}, "scatter_v_bc": {}}
+    for mesh in chain_shapes(device):
+        for name, recs in time_shape(device, mesh, (3, 2)).items():
+            out[name].update(recs)
     return out
 
 
@@ -659,27 +755,37 @@ def device_events(prof):
 
 def profile_call(fn):
     """``(device activities, result, wall seconds)`` of one call of ``fn``.
-    The profiler records the second of two calls: tracing can miss a kernel
-    launched just as it starts, so the first call is its unrecorded
-    warm-up step."""
+    The tracer drops the first activities of a trace -- none, one, or (after
+    much untraced work) thousands -- so a warm-up call of ``fn`` runs inside
+    the trace and is discarded, then ``PROFILE_LEAD`` marker kernels
+    (``torch.cuda._sleep``'s ``spin_kernel``), the recorded call and one
+    marker.  A trace that lacks every leading or the trailing marker is
+    taken again, up to ``PROFILE_ATTEMPTS`` times.  Only the activities
+    between the last leading and the trailing marker are returned."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
-    events = []
-    with profile(
-        activities=[ProfilerActivity.CUDA],
-        schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-        on_trace_ready=lambda p: events.extend(device_events(p)),
-    ) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        prof.step()
-    return events, out, wall
+    for attempt in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            for _ in range(PROFILE_LEAD):
+                torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+            torch.cuda.synchronize()
+        events = sorted(device_events(prof), key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if PROFILE_MARKER in e.name]
+        if len(marks) >= 2 and marks[-1] == len(events) - 1:
+            PROFILE_WINDOWS.append((attempt, PROFILE_LEAD + 1 - len(marks)))
+            return events[marks[-2] + 1 : marks[-1]], out, wall
+        print(f"[profile] trace {attempt + 1} of {PROFILE_ATTEMPTS} holds {len(marks)} of its {PROFILE_LEAD + 1} "
+              f"markers ({len(events)} device activities): taken again")
+    raise RuntimeError(f"the profiler dropped the leading or the trailing markers in all {PROFILE_ATTEMPTS} traces")
 
 
 def phase_launches(device):
@@ -1172,17 +1278,20 @@ def phase_profile(device):
     from navier_stokes_solver_tpu_torch.obs import TRACE_FILE
 
     d = os.path.join(ROOT, "_chip", "profile")
-    shutil.rmtree(d, ignore_errors=True)
-    cli.run(["-m", "16,8", "-r", "20", "-p", "1", "-t", "1e-1", "--direct", "--quiet", "--profile-dir", d, "--device", str(device)])
-    path = os.path.join(d, TRACE_FILE)
-    with open(path) as f:
-        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
-    size = os.path.getsize(path)
-    shutil.rmtree(d)
-    found = {k: any(k in n for n in names) for k in ("cell_apply_f_kernel", "scatter_v_kernel")}
-    print(f"[profile] --profile-dir trace {size} bytes, {len(names)} distinct event names; kernels found {json.dumps(found)}")
-    if not all(found.values()):
-        raise RuntimeError(f"the --profile-dir trace does not name both kernels: {found}")
+    for attempt in range(PROFILE_ATTEMPTS):  # the tracer can drop a window (``profile_call``)
+        shutil.rmtree(d, ignore_errors=True)
+        cli.run(["-m", "16,8", "-r", "20", "-p", "1", "-t", "1e-1", "--direct", "--quiet", "--profile-dir", d,
+                 "--device", str(device)])
+        path = os.path.join(d, TRACE_FILE)
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        size = os.path.getsize(path)
+        shutil.rmtree(d)
+        found = {k: any(k in n for n in names) for k in ("cell_apply_f_kernel", "scatter_v_kernel")}
+        print(f"[profile] --profile-dir trace {size} bytes, {len(names)} distinct event names; kernels found {json.dumps(found)}")
+        if all(found.values()):
+            return
+    raise RuntimeError(f"the --profile-dir trace does not name both kernels in {PROFILE_ATTEMPTS} runs: {found}")
 
 
 # ---------------------------------------------------------------------------
@@ -1250,8 +1359,8 @@ def simplex_tangent_run(device, dense, n):
 
 def cpu_job(name):
     """The CPU side of one card-vs-CPU phase -- "unsteady-check", "matrix",
-    "simplex-check", "fused-check" or "ensemble-check" -- as plain data, for
-    a worker process."""
+    "simplex-check", "fused-check", "ensemble-check" or "cavity-check" -- as
+    plain data, for a worker process."""
     import torch
 
     torch.set_num_threads(CPU_SIDE_THREADS)
@@ -1269,6 +1378,8 @@ def cpu_job(name):
         return [fused_run(cpu, fields, kw) for _, fields, kw in FUSED_CHECK]
     if name == "ensemble-check":
         return ensemble_check_run(cpu)
+    if name == "cavity-check":
+        return cavity_check_run(cpu)
     raise ValueError(f"no CPU side named {name!r}")
 
 
@@ -1403,21 +1514,20 @@ def write_msh2(path, nodes, tri, edges, tags):
         f.write("\n".join(lines) + "\n")
 
 
-def phase_simplex_file(device):
-    import tempfile
-
+def phase_simplex_file(device, directory):
+    """The curved mesh written as ``directory``/curved.msh (native-io reads
+    it again) and solved through ``-M FILE``."""
     import numpy as np
 
     from navier_stokes_solver_tpu_torch.unstructured import triangulate_channel_curved
 
     t0 = time.perf_counter()
     nodes, tri, edges, tags = triangulate_channel_curved(*SIMPLEX_FILE_GRID)
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "curved.msh")
-        write_msh2(path, nodes, tri, edges, tags)
-        size = os.path.getsize(path)
-        print(f"[simplex-file] triangulate_channel_curved{SIMPLEX_FILE_GRID}: {len(nodes)} vertices, {len(tri)} triangles, {int((tags == 10).sum())} id-10 edges; MSH2 file {size} bytes in {time.perf_counter() - t0:.2f} s")
-        s, run = unsteady_cli(device, ["-M", path] + SIMPLEX_FILE_ARGV, "simplex-file")
+    path = os.path.join(directory, "curved.msh")
+    write_msh2(path, nodes, tri, edges, tags)
+    size = os.path.getsize(path)
+    print(f"[simplex-file] triangulate_channel_curved{SIMPLEX_FILE_GRID}: {len(nodes)} vertices, {len(tri)} triangles, {int((tags == 10).sum())} id-10 edges; MSH2 file {size} bytes in {time.perf_counter() - t0:.2f} s")
+    s, run = unsteady_cli(device, ["-M", path] + SIMPLEX_FILE_ARGV, "simplex-file")
     n_cyl = int(s.disc.cyl_tri.numel())
     drag = run["steps"][-1]["drag_coeff"]
     print(f"[simplex-file] {s.n_dofs} DoFs, {n_cyl} curved id-10 edges in the disc, outers {[r['outer'] for r in run['steps']]}, drag {drag!r}")
@@ -1922,16 +2032,290 @@ def phase_ensemble_main(device):
 
 
 # ---------------------------------------------------------------------------
+# 24. cavity-kernels, 25. cavity-ghia, 26. cavity-cli, 27. cavity-check,
+# 28. native-io
+# ---------------------------------------------------------------------------
+
+
+def cavity_force(x, y):
+    """cavity-check's body force, varying in both directions; amplitude 0.1
+    (at 1 the forced Stokes flow is ~10x the lid's speed, an effective Re
+    of ~1,000, and the Newton tangent solves run past 1,000 outers)."""
+    import numpy as np
+
+    return 0.1 * np.sin(np.pi * x) * np.cos(np.pi * y), 0.1 * x * y
+
+
+def phase_cavity_kernels(device):
+    """Both kernels against their plain versions at every level of the
+    cavity's chain, f32 and f64, both regimes (phase 3's checks and
+    tolerances), then phase 4's timings at 128x128."""
+    import torch
+
+    from navier_stokes_solver_tpu_torch.geometry import make_cavity_geometry, make_fe_space
+    from navier_stokes_solver_tpu_torch.ops import make_disc
+    from navier_stokes_solver_tpu_torch.precond.mg import attach_mg, mg_level_shapes
+
+    fine = make_disc(make_fe_space(make_cavity_geometry(*CAVITY_MESH), 2, 1), torch.float32, device)
+    shapes = mg_level_shapes(attach_mg(fine, make_cavity_geometry))
+    print(f"[cavity-kernels] the cavity's multigrid chain: {shapes}")
+    if shapes != CAVITY_CHAIN:
+        raise RuntimeError(f"cavity-kernels: the chain is {shapes}, not {CAVITY_CHAIN}")
+    errs = {"cell_apply_F": 0.0, "scatter_v_bc": 0.0}
+    for mesh in shapes:
+        for dtype in (torch.float32, torch.float64):
+            a, b = check_shape(device, mesh, (2, 1), dtype, make_cavity_geometry, "cavity ")
+            errs = {"cell_apply_F": max(errs["cell_apply_F"], a), "scatter_v_bc": max(errs["scatter_v_bc"], b)}
+    return errs, time_shape(device, CAVITY_MESH, (2, 1), make_cavity_geometry, "cavity ")
+
+
+def cavity_solver(device, mesh, cfg=None, forcing=None):
+    """``NSSolverStationary`` on the Q2/Q1 cavity at Re 100 with the options
+    of tests/test_cavity.py:111-124 (FGMRES, blockTriangular, tol 1e-10,
+    basis 60), set up -- and the Jacobian-consistent continuity sign: with
+    the reference's, Newton stalls a little above the 1e-9 tolerance (1.43e-9
+    at 32x32 on the CPU, the stall config 3 and the unsteady path show)."""
+    from navier_stokes_solver_tpu_torch.api import NSSolverStationary, SolverOptions
+
+    return NSSolverStationary(SolverOptions(
+        mesh_size=mesh, degree_velocity=2, degree_pressure=1, Re=CAVITY_RE, solver_type=1, tolerance=1e-10,
+        preconditioner_type=1, krylov_basis=60, geometry="cavity", verbose=False, precond_config=cfg,
+        forcing=forcing, consistent_continuity=True, device=device,
+    )).setup()
+
+
+def record_solves(s):
+    """Per tangent solve of solver ``s`` from here on: Stokes or Newton,
+    outers, wall, and (on the card) both kernels' launches."""
+    import torch
+
+    out, solve = [], s.solve_system
+
+    def timed(stokes, lifting):
+        before = {k: v["launches"] for k, v in read_counts().items()}
+        t0 = time.perf_counter()
+        n = solve(stokes, lifting)
+        if s.device.type == "cuda":
+            torch.cuda.synchronize(s.device)
+        out.append({"stokes": stokes, "outer": n, "wall_s": time.perf_counter() - t0,
+                    "launches": {k: v["launches"] - before[k] for k, v in read_counts().items()}})
+        return n
+
+    s.solve_system = timed
+    return out
+
+
+def ghia_deviation(s):
+    """Largest |u - Ghia| on the vertical and |v - Ghia| on the horizontal
+    centerline, the solution interpolated linearly along the lattice line."""
+    import numpy as np
+
+    u, _ = s.fields()
+    x, y = s.space.x_v, s.space.y_v
+    icx, icy = int(np.argmin(np.abs(x - 0.5))), int(np.argmin(np.abs(y - 0.5)))
+    if abs(x[icx] - 0.5) > 1e-12 or abs(y[icy] - 0.5) > 1e-12:
+        raise RuntimeError("the cavity lattice has no node line at x = 0.5 or y = 0.5")
+    gu, gv = np.array(GHIA_U), np.array(GHIA_V)
+    err_u = float(np.max(np.abs(np.interp(gu[:, 0], y, u[0, :, icx]) - gu[:, 1])))
+    err_v = float(np.max(np.abs(np.interp(gv[:, 0], x, u[1, icy, :]) - gv[:, 1])))
+    return err_u, err_v
+
+
+def phase_cavity_ghia(device):
+    """The lid-driven cavity at 128x128 Q2/Q1, Re 100, through
+    ``NSSolverStationary.solve_direct`` on the card, f32 preconditioner:
+    counts zeroed just before, read just after; gates: the final Newton
+    residual, both Ghia centerline deviations."""
+    import numpy as np
+
+    card = nvidia_smi()
+    reset_counts()
+    s = cavity_solver(device, CAVITY_MESH)
+    solves = record_solves(s)
+    t0 = time.perf_counter()
+    s.solve_direct()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    final = s.assemble_system(False, lifting=False)
+    err_u, err_v = ghia_deviation(s)
+    u, p = s.fields()
+    print(f"[cavity-ghia] {CAVITY_MESH[0]}x{CAVITY_MESH[1]} Q2/Q1 Re {CAVITY_RE:g}, n_dofs {s.n_dofs}, setup {s.setup_seconds:.3f} s (the chain {s.disc.nx}x{s.disc.ny} ... 8x8 included), solve_direct wall {wall!r} s ({card})")
+    for i, r in enumerate(solves):
+        print(f"[cavity-ghia] tangent solve {i} ({'Stokes init' if r['stokes'] else 'Newton'}): {r['outer']} outers, wall {r['wall_s']!r} s, {r['wall_s'] / max(r['outer'], 1) * 1e3:.2f} ms per outer, launches {json.dumps(r['launches'])}")
+    print(f"[cavity-ghia] outers per tangent solve {[r['outer'] for r in solves]} (total {sum(r['outer'] for r in solves)}); final Newton residual {final:.3e} (gate {s.NEWTON_TOL:g}); phases {json.dumps(s.timer.summary())}")
+    print(f"[cavity-ghia] max deviation from Ghia, Ghia & Shin (1982) Tables I-II at Re 100: u on x = 0.5 {err_u:.4e}, v on y = 0.5 {err_v:.4e} (gate {GHIA_GATE:g} each)")
+    print(f"[cavity-ghia] launches {json.dumps(counts)}")
+    if s.n_dofs != CAVITY_DOFS:
+        raise RuntimeError(f"cavity-ghia: DoF count {s.n_dofs} != {CAVITY_DOFS}")
+    if not (np.isfinite(u).all() and np.isfinite(p).all()):
+        raise RuntimeError("cavity-ghia: the fields are not finite")
+    if not final <= s.NEWTON_TOL:
+        raise RuntimeError(f"cavity-ghia: final Newton residual {final} > {s.NEWTON_TOL}")
+    if not (err_u < GHIA_GATE and err_v < GHIA_GATE):
+        raise RuntimeError(f"cavity-ghia: centerline deviations {err_u}, {err_v} not below {GHIA_GATE}")
+    for name, c in counts.items():
+        if c["launches"] <= 0:
+            raise RuntimeError(f"the cavity path never launched {name}")
+    return s, {"wall_s": wall, "setup_s": s.setup_seconds, "solves": solves, "final_residual": final,
+               "ghia": (err_u, err_v), "counts": counts}
+
+
+def phase_cavity_cli(device):
+    """``cli.stationary --cavity -m 32,32 -r 100 --output`` on the card (the
+    continuation, ``output()`` at each of its call sites): the record's
+    files, decoded, are ``fields()`` at the cell corners, bit for bit."""
+    import numpy as np
+
+    from navier_stokes_solver_tpu_torch.api import NSSolverStationary
+    from navier_stokes_solver_tpu_torch.cli import stationary as cli
+    from navier_stokes_solver_tpu_torch.io.vtu import read_vtu
+
+    calls, output = [], NSSolverStationary.output
+
+    def timed_output(self, *a):
+        t0 = time.perf_counter()
+        output(self, *a)
+        calls.append(time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as d:
+        argv = CAVITY_CLI_ARGV + ["--output-dir", d, "--device", str(device)]
+        NSSolverStationary.output = timed_output
+        try:
+            reset_counts()
+            s = cli.run(argv)
+            counts = read_counts()
+        finally:
+            NSSolverStationary.output = output
+        files = sorted(os.listdir(d))
+        got = read_vtu(os.path.join(d, "output_000.0.vtu"))
+    u, p = s.fields()
+    kv, kp = s.space.deg_v, s.space.deg_p
+    want_v, want_p = u[:, ::kv, ::kv].reshape(2, -1), p[::kp, ::kp].ravel()
+    same = (np.array_equal(got["velocity"][:, :2].T, want_v) and not got["velocity"][:, 2].any()
+            and np.array_equal(got["pressure"], want_p))
+    per_solve = [h.get("krylov_iters") for h in s.history]
+    print(f"[cavity-cli] cli.stationary {' '.join(argv[:-4])} ...: n_dofs {s.n_dofs}, setup {s.setup_seconds:.3f} s, solve wall {s.solve_seconds!r} s, outers per solve {per_solve}; output() {len(calls)} calls, {sum(calls):.3f} s in all; files {files}; decoded fields equal fields() at the corners bit for bit: {same}")
+    print(f"[cavity-cli] launches {json.dumps(counts)}")
+    if files != ["output_000.0.vtu", "output_000.pvtu"]:
+        raise RuntimeError(f"cavity-cli: the output directory holds {files}")
+    if not same:
+        raise RuntimeError("cavity-cli: the VTU fields are not fields() at the cell corners")
+    if len(calls) < 2 or not np.isfinite(u).all():
+        raise RuntimeError(f"cavity-cli: {len(calls)} output() calls, finite fields {np.isfinite(u).all()}")
+    for name, c in counts.items():
+        if c["launches"] <= 0:
+            raise RuntimeError(f"the cavity CLI path never launched {name}")
+    return s, {"wall_s": s.solve_seconds, "outer": per_solve, "output_calls": len(calls), "counts": counts}
+
+
+def cavity_check_run(device):
+    """cavity-check's forced 32x32 solve on one device, all-f64, as plain
+    data: outers per tangent solve, fields (pressure mean removed), wall."""
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    s = cavity_solver(device, CAVITY_CHECK_MESH, PrecondConfig(vmult_dtype=None, mg_dtype=None), cavity_force)
+    solves = record_solves(s)
+    t0 = time.perf_counter()
+    s.solve_direct()
+    u, p = s.fields()
+    return {"outer": [r["outer"] for r in solves], "fields": (u, p - p.mean()), "wall_s": time.perf_counter() - t0}
+
+
+def phase_cavity_check(device, cpu_side=None):
+    """A forced 32x32 Q2/Q1 cavity at Re 100 on the card against the CPU
+    (``cpu_side``: the future of ``cpu_job("cavity-check")``): outers within
+    1 per tangent solve, fields within 1e-6 of their magnitude."""
+    import numpy as np
+
+    if cpu_side is None:
+        with cpu_pool(1) as pool:
+            return phase_cavity_check(device, pool.submit(cpu_job, "cavity-check"))
+    g, c = cavity_check_run(device), cpu_side.result()
+    for where, r in (("card", g), ("CPU", c)):
+        print(f"[cavity-check] {CAVITY_CHECK_MESH[0]}x{CAVITY_CHECK_MESH[1]} Q2/Q1 Re {CAVITY_RE:g} with a body force on the {where}: wall {r['wall_s']!r} s, outers per tangent solve {r['outer']}")
+    if len(g["outer"]) != len(c["outer"]):
+        raise RuntimeError("cavity-check: the card and the CPU ran different numbers of tangent solves")
+    diffs = [a - b for a, b in zip(g["outer"], c["outer"])]
+    if any(abs(d) > 1 for d in diffs):
+        raise RuntimeError(f"cavity-check: outers differ by more than 1: {diffs}")
+    for name, a, b in zip(("velocity", "pressure (mean removed)"), g["fields"], c["fields"]):
+        err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+        print(f"[cavity-check] {name}: max|card - CPU| {err:.3e} (max|CPU| {scale:.3e})")
+        if not err <= FIELD_GATE * scale:
+            raise RuntimeError(f"cavity-check: {name} differs by {err} > {FIELD_GATE} x {scale}")
+    return {"diffs": diffs}
+
+
+def best_of(fn, n=3):
+    """(smallest wall of ``n`` calls of ``fn``, its last result)."""
+    walls, out = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        walls.append(time.perf_counter() - t0)
+    return min(walls), out
+
+
+def phase_native_io(state300, simplex3, msh_path):
+    """The native C++ IO library: phase 9's 300x100 Q3/Q2 state through the
+    native and the Python VTU writers (byte for byte, both timed); a config-3
+    state through ``write_vtu_tri``; the simplex-file mesh through the
+    native and the Python gmsh readers (arrays equal, both timed)."""
+    import numpy as np
+
+    from unittest import mock
+
+    from navier_stokes_solver_tpu_torch import native
+    from navier_stokes_solver_tpu_torch.io import vtu
+    from navier_stokes_solver_tpu_torch.io.msh import _read_msh_python
+
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise RuntimeError("native-io: the native IO library did not build (g++)")
+    print(f"[native-io] {os.path.relpath(native.library_path(), ROOT)} loaded in {time.perf_counter() - t0:.3f} s")
+    space, u, p = state300
+    disc3, u3, p3 = simplex3
+    with tempfile.TemporaryDirectory() as d:
+        paths = {k: os.path.join(d, f"{k}.vtu") for k in ("native", "python", "tri")}
+        t_nat, _ = best_of(lambda: vtu.write_vtu(space, u, p, paths["native"]))
+        with mock.patch.object(vtu, "write_vtu_native", lambda *a: False):  # the plain version
+            t_py, _ = best_of(lambda: vtu.write_vtu(space, u, p, paths["python"]))
+        with open(paths["native"], "rb") as f:
+            a = f.read()
+        with open(paths["python"], "rb") as f:
+            b = f.read()
+        t_tri, _ = best_of(lambda: vtu.write_vtu_tri(disc3, u3, p3, paths["tri"]))
+        tri = vtu.read_vtu(paths["tri"])
+    n_v = tri["pressure"].shape[0]
+    tri_ok = np.array_equal(tri["velocity"][:, :2].T, u3[:, :n_v]) and np.array_equal(tri["pressure"], p3)
+    print(f"[native-io] write_vtu {space.geo.nx}x{space.geo.ny} Q{space.deg_v}/Q{space.deg_p} ({space.n_dofs} DoFs, {len(a)} bytes): native {t_nat * 1e3:.2f} ms, Python {t_py * 1e3:.2f} ms (best of 3), byte for byte equal: {a == b} ({card})")
+    print(f"[native-io] write_vtu_tri config 3 ({n_v} vertices): {t_tri * 1e3:.2f} ms, decoded fields equal: {tri_ok}")
+    t_rn, got = best_of(lambda: native.read_msh_native(msh_path))
+    t_rp, want = best_of(lambda: _read_msh_python(msh_path))
+    same = set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want)
+    print(f"[native-io] read_msh {os.path.getsize(msh_path)} bytes ({len(want['nodes_xy'])} vertices, {len(want['tri'])} triangles): native {t_rn * 1e3:.2f} ms, Python {t_rp * 1e3:.2f} ms (best of 3), arrays equal: {same} ({card})")
+    if a != b:
+        raise RuntimeError("native-io: the native and Python VTU writers disagree")
+    if not tri_ok:
+        raise RuntimeError("native-io: write_vtu_tri's fields do not decode to the config-3 state")
+    if not same:
+        raise RuntimeError("native-io: the native and Python gmsh readers disagree")
+    return {"write_native_s": t_nat, "write_python_s": t_py, "write_tri_s": t_tri, "read_native_s": t_rn,
+            "read_python_s": t_rp}
+
+
+# ---------------------------------------------------------------------------
 # report
 # ---------------------------------------------------------------------------
 
 
 def kernel_line(errs, times, counts, counts_by_path):
     """The kernels of the slices' main paths: launches from this slice's
-    (BASELINE config 1 through the CLI) and times at its finest level, in
-    its (Stokes) regime; launches on every main path, and times at every
-    shape, beside them."""
-    mesh = f"{CONFIG1_MESH[0]}x{CONFIG1_MESH[1]} Q3/Q2 float32"
+    (the 128x128 Q2/Q1 cavity, cavity-ghia) and times at its finest level,
+    in the Stokes regime (the one with a library yardstick); launches on
+    every main path, and times at every shape, beside them."""
+    mesh = f"cavity {CAVITY_MESH[0]}x{CAVITY_MESH[1]} Q2/Q1 float32"
     main_tag = {"cell_apply_F": f"{mesh} stokes", "scatter_v_bc": f"{mesh} bc"}
     rows = []
     for name in ("cell_apply_F", "scatter_v_bc"):
@@ -1970,15 +2354,16 @@ def main():
         f"phase 12's unsteady card-only entry dropped; fused-main {FUSED_MAIN_STEPS} of 2 steps. Not cut: "
         f"unsteady-check steps {CHECK_STEPS}, config 1, matrix at {MATRIX_MESH[0]}x{MATRIX_MESH[1]}, simplex check at "
         f"-M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]}, fused check (3 and 2 steps), config3 its 3 steps, "
-        f"simplex-file one step, ensemble-main B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps"
+        f"simplex-file one step, ensemble-main B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps, cavity-ghia at "
+        f"{CAVITY_MESH[0]}x{CAVITY_MESH[1]}"
     )
     phase_build()
     errs = phase_check(device)
     times = phase_time(device)
-    ens_errs, ens_times = phase_ensemble_kernels(device)
-    for name in errs:
-        errs[name] = max(errs[name], ens_errs[name])
-        times[name].update(ens_times[name])
+    for more_errs, more_times in (phase_ensemble_kernels(device), phase_cavity_kernels(device)):
+        for name in errs:
+            errs[name] = max(errs[name], more_errs[name])
+            times[name].update(more_times[name])
     phase_launches(device)
     s1, config1 = phase_config1(device)
     c1outer = phase_outer(s1, regimes=(True,), tag="config1-outer")
@@ -1997,37 +2382,52 @@ def main():
     uouter = phase_outer(su, regimes=(False,), tag="unsteady-outer")
     print(f"[unsteady-main] per-step walls {[r['wall_s'] for r in unsteady['steps']]} s; outer iterations per step {[r['outer'] for r in unsteady['steps']]}; Newton regime per outer iteration: {uouter['newton']['kernels']!r} device kernels, {uouter['newton']['readbacks']!r} readbacks, busy {uouter['newton']['busy']:.4f}")
     fused_main = phase_fused_main(su)
+    state300 = (su.space, *su.fields())
     del su
     ensemble = phase_ensemble_main(device)
     print(f"[ensemble-main] {ensemble['member_steps_per_s']!r} member-steps/s, median step {ensemble['median_step_s']!r} s, B = 1 control {ensemble['control_step_s']!r} s, batch_efficiency_vs_single {ensemble['batch_efficiency_vs_single']!r}; per outer iteration {ensemble['outer']['kernels']!r} device kernels, {ensemble['outer']['device_ms']!r} device ms, {ensemble['outer']['wall_ms']!r} ms wall, {ensemble['outer']['readbacks']!r} readbacks, busy {ensemble['outer']['busy']:.4f}, our kernels {ensemble['outer']['ours_share']:.4f} of the device time")
+    sc, cavity = phase_cavity_ghia(device)
+    couter = phase_outer(sc, regimes=(False,), tag="cavity-outer")
+    print(f"[cavity-ghia] per outer iteration at the converged state, Newton regime (the Stokes rhs of a converged cavity is zero): {couter['newton']['kernels']!r} device kernels, {couter['newton']['device_ms']!r} device ms, {couter['newton']['wall_ms']!r} ms wall, {couter['newton']['readbacks']!r} readbacks, busy {couter['newton']['busy']:.4f}")
+    del sc
+    _, cavity_cli = phase_cavity_cli(device)
     # the card-vs-CPU phases, after the timed paths before them and before
     # those after them: their CPU sides run meanwhile in worker processes
     t_checks = time.perf_counter()
     with cpu_pool(3) as pool:
-        # the fourth and fifth CPU sides start when a worker is free
+        # the fourth to sixth CPU sides start when a worker is free
         cpu = {name: pool.submit(cpu_job, name)
-               for name in ("unsteady-check", "matrix", "simplex-check", "fused-check", "ensemble-check")}
+               for name in ("unsteady-check", "matrix", "simplex-check", "fused-check", "ensemble-check",
+                            "cavity-check")}
         phase_unsteady_check(device, cpu["unsteady-check"])
         phase_matrix(device, cpu["matrix"])
         phase_profile(device)
         phase_simplex_check(device, cpu["simplex-check"])
         phase_fused_check(device, cpu["fused-check"])
         phase_ensemble_check(device, cpu["ensemble-check"])
-    print(f"[budget] card-vs-CPU phases (8, 12-14, 18, 22) {time.perf_counter() - t_checks:.1f} s")
+        phase_cavity_check(device, cpu["cavity-check"])
+    print(f"[budget] card-vs-CPU phases (8, 12-14, 18, 22, 27) {time.perf_counter() - t_checks:.1f} s")
     s3, config3 = phase_config3(device)
     c3outer = phase_outer(s3, regimes=(False,), tag="config3-outer")
     print(f"[config3] setup {config3['setup_s']:.3f} s, per-step walls {[r['wall_s'] for r in config3['steps']]} s, Newton iterations per step {[r['newton_iterations'] for r in config3['steps']]}, outers per step {[r['outer'] for r in config3['steps']]}; Newton regime per outer iteration: {c3outer['newton']['kernels']!r} device kernels, {c3outer['newton']['device_ms']!r} device ms, {c3outer['newton']['wall_ms']!r} ms wall, {c3outer['newton']['readbacks']!r} readbacks, busy {c3outer['newton']['busy']:.4f}")
+    simplex3 = (s3.disc, *s3.fields())
     del s3
     _, config3_lu = phase_config3_lu(device)
     _, config3_lu_fused = phase_config3_lu_fused(device)
-    _, simplex_file = phase_simplex_file(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, simplex_file = phase_simplex_file(device, tmp)
+        phase_native_io(state300, simplex3, os.path.join(tmp, "curved.msh"))
     counts_by_path = {
         "stationary": runs[0]["counts"], "unsteady": unsteady["counts"], "unsteady_fused": fused_main["counts"],
         "config1_blockdiag": config1["counts"], "simplex_config3": config3["counts"],
         "simplex_config3_lu": config3_lu["counts"], "simplex_config3_lu_fused": config3_lu_fused["counts"],
         "simplex_file": simplex_file["counts"], "ensemble": ensemble["counts"],
+        "cavity_ghia": cavity["counts"], "cavity_cli": cavity_cli["counts"],
     }
-    print(kernel_line(errs, times, config1["counts"], counts_by_path))
+    print(kernel_line(errs, times, cavity["counts"], counts_by_path))
+    print(f"[profile] {len(PROFILE_WINDOWS)} profiler windows: {sum(a for a, _ in PROFILE_WINDOWS)} traces taken "
+          f"again; {sum(d > 0 for _, d in PROFILE_WINDOWS)} of the kept traces lost leading markers "
+          f"({sum(d for _, d in PROFILE_WINDOWS)} in all)")
     print(f"[budget] script wall {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,12 @@ import numpy as np
 import torch
 
 from navier_stokes_solver_tpu_torch.api import kernels
-from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry, make_fe_space
-from navier_stokes_solver_tpu_torch.io import read_msh
+from navier_stokes_solver_tpu_torch.geometry import (
+    make_cavity_geometry,
+    make_channel_geometry,
+    make_fe_space,
+)
+from navier_stokes_solver_tpu_torch.io import read_msh, write_msh, write_vtu_record, write_vtu_tri
 from navier_stokes_solver_tpu_torch.obs import PhaseTimer
 from navier_stokes_solver_tpu_torch.ops import Blocks, make_disc
 from navier_stokes_solver_tpu_torch.precond import PrecondConfig, attach_mg
@@ -33,6 +37,9 @@ __all__ = [
 ]
 
 SOLVER_NAMES = {0: "GMRES", 1: "FGMRES", 2: "Bicgstab"}
+# SolverOptions.geometry -> the maker of its structured geometry (every
+# multigrid level is made by the same one)
+GEOMETRIES = {"channel": make_channel_geometry, "cavity": make_cavity_geometry}
 
 
 @dataclasses.dataclass
@@ -58,7 +65,9 @@ class SolverOptions:
     # triangulated internal channel at ``mesh_size``
     read_mesh_from_file: bool = False
     mesh_file_name: str = ""
-    geometry: str = "channel"  # "cavity": not ported
+    # "channel": the reference's channel with its cylinder; "cavity": the
+    # lid-driven unit cavity (geometry/cavity.py; structured path only)
+    geometry: str = "channel"
     multigrid: bool = True  # geometric-MG velocity smoother (AMG analog)
     # working precision of the solve: None = float64; torch.float32 (or
     # "float32") is the CLI's --f32
@@ -68,9 +77,14 @@ class SolverOptions:
     # fallback)
     device: Any = "cuda"
     verbose: bool = True
-    write_output: bool = False  # VTU snapshots: not ported
-    # directory of the lift/drag coefficient files (write_lift_drag_to_file)
+    write_output: bool = False  # VTU snapshots (output(); the reference writes always)
+    # directory of the VTU snapshots and of the lift/drag coefficient files
     output_dir: str = "."
+    write_mesh: bool = False  # write mesh.msh at setup (NSSolver.cpp:108)
+    # optional body force f(x, y) -> (fx, fy), vectorized over arrays (the
+    # reference's ForcingTerm placeholder, NSSolver.hpp:93-122; zero when
+    # None); structured path only
+    forcing: Any = None
     profile_dir: str = ""  # the CLI captures a torch.profiler trace here
     # the CLI's --fused: the unsteady solver runs ``solve_fused`` (the
     # stationary solver ignores it, as the JAX package's does)
@@ -94,18 +108,16 @@ class SolverOptions:
     def check(self) -> None:
         """Raise on options outside the ported slice: a field whose feature
         is not ported raises only when set away from its default."""
-        if self.geometry == "cavity":
-            raise NotImplementedError(
-                "the cavity geometry is not ported yet (ROADMAP.md A.D6b)"
-            )
-        if self.geometry != "channel":
+        if self.geometry not in GEOMETRIES:
             raise ValueError(f"unknown geometry {self.geometry!r}")
+        if self.read_mesh_from_file and self.geometry == "cavity":
+            raise ValueError("geometry='cavity' is structured-path only (no -M)")
+        if self.read_mesh_from_file and self.forcing is not None:
+            raise ValueError("a body force is structured-path only (no -M)")
         if self.dd is not None:
             raise NotImplementedError(
                 "domain decomposition is not ported yet (ROADMAP.md A.D9, dist/)"
             )
-        if self.write_output:
-            raise NotImplementedError("VTU output is not ported yet (ROADMAP.md A.D6b)")
         if self.solver_type not in (0, 1, 2):
             raise ValueError(f"invalid solver_type {self.solver_type!r}")
         if self.preconditioner_type not in (0, 1, 2):
@@ -189,7 +201,8 @@ class NSSolverBase:
         the triangulated internal channel when no file is given."""
         o = self.options
         t0 = _time.perf_counter()
-        self.geo = make_channel_geometry(*o.mesh_size)
+        make_geometry = GEOMETRIES[o.geometry]
+        self.geo = make_geometry(*o.mesh_size)
         if o.read_mesh_from_file:
             self.space = None
             self.disc = self._simplex_disc()
@@ -197,11 +210,15 @@ class NSSolverBase:
             n_dofs_v, n_dofs_p = 2 * self.disc.n_nodes_v, self.disc.n_nodes_p
         else:
             self.space = make_fe_space(self.geo, o.degree_velocity, o.degree_pressure)
-            self.disc = make_disc(self.space, self.dtype, self.device)
+            self.disc = make_disc(self.space, self.dtype, self.device, forcing=o.forcing)
             if o.multigrid:
-                self.disc = attach_mg(self.disc)
+                self.disc = attach_mg(self.disc, make_geometry)
             n_el = self.geo.n_active_cells
             n_dofs_v, n_dofs_p = self.space.n_dofs_velocity, self.space.n_dofs_pressure
+            if o.write_mesh:
+                # the reference always writes the generated mesh
+                # (GridOut::write_msh, NSSolver.cpp:108-110); opt-in here
+                write_msh(self.geo, "mesh.msh")
         self.log(f"  Number of elements = {n_el}")
         self.log("-----------------------------------------------")
         self.log("Initializing the finite element space")
@@ -396,8 +413,20 @@ class NSSolverBase:
                 f.write(f"{value}\n")
 
     def output(self, time_step: int | None = None):
-        """VTU output (NSSolver.cpp:761-797): a no-op, since
-        ``SolverOptions.check`` rejects ``write_output`` (ROADMAP.md A.D6b)."""
+        """VTU output (NSSolver.cpp:761-797) into ``options.output_dir`` when
+        ``write_output`` is set: ``output_NNN.0.vtu`` and its ``.pvtu``
+        record on the structured lattice, ``output_NNN.0.vtu`` of triangles
+        under ``-M`` (``NNN`` = ``time_step``, 0 by default)."""
+        o = self.options
+        if not o.write_output:
+            return
+        u, p = self.fields()
+        counter = time_step or 0
+        if self.space is None:
+            os.makedirs(o.output_dir, exist_ok=True)
+            write_vtu_tri(self.disc, u, p, os.path.join(o.output_dir, f"output_{counter:03d}.0.vtu"))
+        else:
+            write_vtu_record(self.space, u, p, directory=o.output_dir, counter=counter)
 
     def fields(self) -> tuple[np.ndarray, np.ndarray]:
         """Host copies of (velocity, pressure): [2, NVy, NVx] and [NPy, NPx]

@@ -55,7 +55,9 @@ class NSSolverStationary(NSSolverBase):
 
     # ------------------------------------------------------------------
     def solve_newton(self):
-        """NSSolverStationary::solve_newton (NSSolverStationary.cpp:649-758)."""
+        """NSSolverStationary::solve_newton (NSSolverStationary.cpp:649-758);
+        ``output()`` after every Newton step and every Re stage, at the JAX
+        package's call sites."""
         self.log("===============================================")
         target_Re = self.Re
         global_first_iter = True
@@ -149,12 +151,15 @@ class NSSolverStationary(NSSolverBase):
                             stokes_accepted = True
                     else:
                         self.log(" < tolerance")
+                        self.output()
                         break
+                    self.output()
                     n_iter += 1
 
                 inlet_reached = self.inlet_velocity.increment(self.get_reynolds())
                 if inlet_reached:
                     computing_stokes = False
+            self.output()
             current_Re += 20.0
         self.log("===============================================")
 

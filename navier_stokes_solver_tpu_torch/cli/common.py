@@ -1,10 +1,9 @@
 """Shared CLI argument handling (getopt_long parity, test.cpp:37-105): the
 JAX package's flags, defaults and error messages, plus ``--device``.
 
-Flags whose feature is not ported (``--dd``, ``--cavity``, ``--output``,
-``--ir mixed``) parse as in the JAX CLI; the run then stops
-when the solver is built, with the ``NotImplementedError`` that names the
-feature's ROADMAP item.
+Flags whose feature is not ported (``--dd``, ``--ir mixed``) parse as in
+the JAX CLI; the run then stops when the solver is built, with the
+``NotImplementedError`` that names the feature's ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ def build_parser(unsteady: bool) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="NSSolver" if unsteady else "StationaryNSSolver",
         description="PyTorch/CUDA incompressible Navier-Stokes solver "
-        "(flow past a cylinder in a channel).",
+        "(flow past a cylinder in a channel, or the lid-driven cavity).",
     )
     if unsteady:
         p.add_argument(
@@ -141,8 +140,9 @@ def build_parser(unsteady: bool) -> argparse.ArgumentParser:
     p.add_argument(
         "--cavity",
         action="store_true",
-        help="the lid-driven cavity instead of the channel (not ported yet: "
-        "ROADMAP.md A.D6b)",
+        help="solve the lid-driven cavity (unit box, moving top lid) "
+        "instead of the channel -- an extension beyond the reference "
+        "(geometry/cavity.py; Ghia et al. 1982 benchmark geometry)",
     )
     p.add_argument(
         "--skip-futile-stokes",
@@ -160,10 +160,8 @@ def build_parser(unsteady: bool) -> argparse.ArgumentParser:
         "+(q, div u_k) (NSSolver.cpp:461-463 vs :517-519).  Default off "
         "= reference parity",
     )
-    p.add_argument(
-        "--output", action="store_true",
-        help="write VTU snapshots (not ported yet: ROADMAP.md A.D6b)",
-    )
+    p.add_argument("--output", action="store_true",
+                   help="write VTU snapshots into --output-dir")
     p.add_argument("--output-dir", default=".", metavar="DIR")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--profile-dir", default="", metavar="DIR",

@@ -1,4 +1,5 @@
-"""Structured channel geometry and function space layout (NumPy, host-side)."""
+"""Structured channel and cavity geometry and function space layout (NumPy,
+host-side)."""
 
 from navier_stokes_solver_tpu_torch.geometry.channel import (
     BOUNDARY_CYLINDER,
@@ -9,11 +10,13 @@ from navier_stokes_solver_tpu_torch.geometry.channel import (
     ChannelGeometry,
     make_channel_geometry,
 )
+from navier_stokes_solver_tpu_torch.geometry.cavity import make_cavity_geometry
 from navier_stokes_solver_tpu_torch.geometry.space import FESpace, make_fe_space
 
 __all__ = [
     "ChannelGeometry",
     "make_channel_geometry",
+    "make_cavity_geometry",
     "FESpace",
     "make_fe_space",
     "BOUNDARY_WALL",

@@ -1,4 +1,5 @@
-"""Host-side I/O: gmsh ``.msh`` import and export, checkpoints."""
+"""Host-side I/O: VTU/PVTU output, gmsh ``.msh`` import and export,
+checkpoints."""
 
 from navier_stokes_solver_tpu_torch.io.checkpoint import (
     load_checkpoint,
@@ -7,8 +8,12 @@ from navier_stokes_solver_tpu_torch.io.checkpoint import (
     save_time_state,
 )
 from navier_stokes_solver_tpu_torch.io.msh import read_msh, write_msh
+from navier_stokes_solver_tpu_torch.io.vtu import write_vtu, write_vtu_record, write_vtu_tri
 
 __all__ = [
+    "write_vtu",
+    "write_vtu_record",
+    "write_vtu_tri",
     "read_msh",
     "write_msh",
     "save_checkpoint",

@@ -14,8 +14,8 @@ tag lists) and 4.1 (entity blocks; physical tags resolved through
 ``$Entities``) — all three are supported here, covering every ``.msh``
 shipped with the reference (``lab_new/mesh/*.msh`` are 4.1 except
 ``new_mesh.msh`` which is 2.2; the reference's own ``GridOut`` output
-``mesh.msh`` is MSH1).  The parsers are pure Python (the JAX package's
-native C++ reader waits for ROADMAP.md A.D6b).
+``mesh.msh`` is MSH1).  The C++ parser in ``native/`` is the fast path,
+with the pure-Python parsers here as its plain version.
 
 Physical-tag notes (matching deal.II semantics):
 - MSH2: the first tag is the physical id.
@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 
 from navier_stokes_solver_tpu_torch.geometry.channel import ChannelGeometry, INTERIOR
+from navier_stokes_solver_tpu_torch.native import read_msh_native
 
 __all__ = ["write_msh", "read_msh"]
 
@@ -195,14 +196,15 @@ def _read_msh_python(path: str) -> dict:
 
 
 def read_msh(path: str) -> dict:
-    """Parse a gmsh MSH1 / MSH2 / MSH4.1 file (pure Python).
+    """Parse a gmsh MSH1 / MSH2 / MSH4.1 file (the native C++ parser, or the
+    Python one when the native library is unavailable).
 
     Returns dict(nodes_xy [n,2], tri [t,3], tri_tag, quad [q,4], quad_tag,
     edges [e,2], edge_tag, tet [k,4], tet_tag) with 0-based connectivity --
-    the arrays of the JAX package's reader (whose native C++ fast path waits
-    for ROADMAP.md A.D6b).
+    the arrays of the JAX package's reader.
     """
-    return _read_msh_python(path)
+    out = read_msh_native(path)
+    return out if out is not None else _read_msh_python(path)
 
 
 def write_msh(geo: ChannelGeometry, path: str) -> str:

@@ -67,6 +67,9 @@ class Disc:
     # Geometric-multigrid chain (precond/mg.py): link to the next-coarser
     # rediscretized level; None on the coarsest level / without MG.
     mg: "MGEdge | None" = None
+    # (f, v) of the body force f(x, y) on the velocity lattice, added to
+    # every residual; None without a force (make_disc's ``forcing``)
+    forcing_rhs: torch.Tensor | None = None  # [2, NVy, NVx] dtype
 
     @property
     def dtype(self) -> torch.dtype:
@@ -122,6 +125,8 @@ class Disc:
         kw = {f: getattr(self, f).to(dtype) for f in _FLOAT_FIELDS + _TABLE_FIELDS}
         kw.update(_weights(kw["w_ref"], self.hx, self.hy, kw["cell_mask"]))
         kw["mg"] = None if self.mg is None else self.mg.to(dtype)
+        if self.forcing_rhs is not None:
+            kw["forcing_rhs"] = self.forcing_rhs.to(dtype)
         return dataclasses.replace(self, **kw)
 
 
@@ -209,8 +214,42 @@ def _neumann_rhs_unit(space: FESpace) -> np.ndarray:
     return out
 
 
-def make_disc(space: FESpace, dtype: torch.dtype, device: torch.device | str) -> Disc:
-    """Lower a host FESpace to tensors of ``dtype`` on ``device``."""
+def _forcing_rhs(space: FESpace, forcing) -> np.ndarray:
+    """(f, v) projected onto the velocity test functions, host-side (the
+    JAX package's order of summation)."""
+    t = space.tables
+    geo = space.geo
+    k = t.deg_v
+    out = np.zeros((2, space.NVy, space.NVx))
+    w = t.w_q * geo.hx * geo.hy
+    cx, cy = geo.cell_centers()
+    x0s = cx - 0.5 * geo.hx
+    y0s = cy - 0.5 * geo.hy
+    qx = np.tile(t.q1d, t.n_q1d)
+    qy = np.repeat(t.q1d, t.n_q1d)
+    iy, ix = np.nonzero(geo.cell_active)
+    # physical quadrature points per active cell
+    X = x0s[ix][:, None] + qx[None, :] * geo.hx  # [n_cells, n_q]
+    Y = y0s[iy][:, None] + qy[None, :] * geo.hy
+    fx, fy = forcing(X, Y)  # broadcastable arrays [n_cells, n_q]
+    loc_x = np.einsum("q,qm,cq->cm", w, t.phi_v, np.broadcast_to(fx, X.shape))
+    loc_y = np.einsum("q,qm,cq->cm", w, t.phi_v, np.broadcast_to(fy, X.shape))
+    n1 = k + 1
+    for m in range(n1 * n1):
+        a, b = divmod(m, n1)
+        np.add.at(out[0], (k * iy + a, k * ix + b), loc_x[:, m])
+        np.add.at(out[1], (k * iy + a, k * ix + b), loc_y[:, m])
+    return out
+
+
+def make_disc(
+    space: FESpace, dtype: torch.dtype, device: torch.device | str, forcing=None
+) -> Disc:
+    """Lower a host FESpace to tensors of ``dtype`` on ``device``.
+
+    ``forcing``: optional callable ``f(x, y) -> (fx, fy)`` (vectorized over
+    arrays); its weak-form projection is added to every velocity rhs.
+    """
     geo = space.geo
     t = space.tables
     fl = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device).to(dtype)
@@ -232,6 +271,7 @@ def make_disc(space: FESpace, dtype: torch.dtype, device: torch.device | str) ->
         inlet_profile1=fl(space.inlet_profile(1.0)),
         neumann_rhs1=fl(_neumann_rhs_unit(space)),
         cyl_face_mask=fl(geo.face_id == BOUNDARY_CYLINDER),
+        forcing_rhs=None if forcing is None else fl(_forcing_rhs(space, forcing)),
         **_element_fields(t, geo.hx, geo.hy, cell_mask),
     )
 
@@ -247,15 +287,14 @@ def disc_from_numpy(
 
     ``leaves["mg"]``, when present and not None, is the same kind of dict
     for the JAX ``MGEdge`` (its ``coarse`` a nested Disc dict), so a test
-    can carry the exact reference hierarchy across.  Fields the port does
-    not model (domain-decomposition halo settings, forcing) must be unset.
+    can carry the exact reference hierarchy across, and
+    ``leaves["forcing_rhs"]`` the body force's rhs.  The
+    domain-decomposition halo settings must be unset.
     """
     if leaves.get("halo_axis") is not None or leaves.get("halo_axis_y") is not None:
         raise NotImplementedError(
             "decomposed discs are not ported yet (ROADMAP.md A.D9, dist/)"
         )
-    if leaves.get("forcing_rhs") is not None:
-        raise NotImplementedError("body forcing is not ported (ROADMAP.md A.D6b)")
     if dtype is None:
         dtype = torch.float64 if np.asarray(leaves["cell_mask"]).dtype == np.float64 else torch.float32
     fl = lambda a: torch.as_tensor(np.array(a), device=device).to(dtype)
@@ -270,6 +309,7 @@ def disc_from_numpy(
     deg = tuple(int(leaves[k]) for k in ("deg_v", "deg_p", "n_q1d"))
     hx, hy = float(leaves["hx"]), float(leaves["hy"])
     floats = {k: fl(leaves[k]) for k in _FLOAT_FIELDS}
+    forcing = leaves.get("forcing_rhs")
     return Disc(
         nx=int(leaves["nx"]),
         ny=int(leaves["ny"]),
@@ -279,6 +319,7 @@ def disc_from_numpy(
         hx=hx,
         hy=hy,
         mg=edge,
+        forcing_rhs=None if forcing is None else fl(forcing),
         **floats,
         **{k: bl(leaves[k]) for k in _BOOL_FIELDS},
         **_element_fields(make_taylor_hood(*deg), hx, hy, floats["cell_mask"]),

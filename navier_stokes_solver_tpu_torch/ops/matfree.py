@@ -384,7 +384,9 @@ def residual(
     (u - u_old) . v / dt, viscous a(u_k, v), convective c(u_k; u_k, v),
     +b(v, p_k), +b(u_k, q); plus the outlet Neumann term (:528-551) and
     Dirichlet rows ``diag * g`` (:564-598).  Stokes regime: rhs = Neumann
-    term only (the i-loop is skipped, NSSolver.cpp:472-475).
+    term only (the i-loop is skipped, NSSolver.cpp:472-475).  Both regimes
+    add the body force's ``disc.forcing_rhs`` when there is one (it is
+    state independent, so it broadcasts over an ensemble's members).
 
     ``inlet_amp``: amplitude of the inlet parabola lifted into the Dirichlet
     rows -- U_m on the very first assembly, 0 afterwards (increment
@@ -398,6 +400,8 @@ def residual(
     if stokes:
         ru = p_out * disc.neumann_rhs1
         rp = disc.zeros_p()
+        if disc.forcing_rhs is not None:
+            ru = ru + disc.forcing_rhs
     else:
         linq = eval_state(disc, st)
         u_old_q, _ = _eval_v(disc, u_old)
@@ -406,6 +410,8 @@ def residual(
         nu = per_member(nu, linq.gradu.dim(), 1)
         f_grad = -nu * linq.gradu + linq.p[..., None, None, :, :] * _eye2(disc)
         ru = _project_v(disc, f_val, f_grad) + p_out * disc.neumann_rhs1
+        if disc.forcing_rhs is not None:
+            ru = ru + disc.forcing_rhs
         div = linq.gradu[..., 0, 0, :, :] + linq.gradu[..., 1, 1, :, :]
         rp = _project_p(disc, -div if consistent else div)
 

@@ -1,9 +1,9 @@
 """Geometric multigrid on the velocity block (the AMG/ILU equivalence layer).
 
 The port of the JAX package's ``precond/mg.py`` on the slice's path: the
-rediscretization hierarchy (the channel regenerated at semi-coarsened cell
-counts, dense 1-D tensor-factor transfers over the velocity and pressure
-lattices), the velocity V-cycle with its three smoothers (the fixed-step
+rediscretization hierarchy (the fine level's geometry regenerated at
+semi-coarsened cell counts, dense 1-D tensor-factor transfers over the
+velocity and pressure lattices), the velocity V-cycle with its three smoothers (the fixed-step
 Jacobi-preconditioned GMRES smoother, Chebyshev-Jacobi, and Chebyshev
 over the cell-block additive Schwarz sweep of ``precond/schwarz.py``),
 and the pressure-Laplacian V-cycle of the Cahouet-Chabard Schur leg with
@@ -98,8 +98,17 @@ def _coarse_shape(nx: int, ny: int, hx: float, hy: float) -> tuple[int, int]:
     return -(-nx // 2), -(-ny // 2)
 
 
-def attach_mg(disc: Disc, *, min_cells: int = 48, max_levels: int = 8) -> Disc:
-    """Attach a multigrid chain of the reference channel to ``disc``."""
+def attach_mg(
+    disc: Disc,
+    make_geometry=make_channel_geometry,
+    *,
+    min_cells: int = 48,
+    max_levels: int = 8,
+) -> Disc:
+    """Attach a multigrid chain to ``disc``: every coarse level is
+    ``make_geometry(nx, ny)``, the maker of the fine level's own geometry
+    (the reference channel, or ``make_cavity_geometry`` for the cavity, so
+    that its coarse operators are a cavity's too)."""
     tables = make_taylor_hood(disc.deg_v, disc.deg_p, disc.n_q1d)
     nodes = tables.nodes_v
     deg = disc.deg_v
@@ -110,7 +119,7 @@ def attach_mg(disc: Disc, *, min_cells: int = 48, max_levels: int = 8) -> Disc:
         nxc, nyc = _coarse_shape(nx, ny, W / nx, H / ny)
         if level >= max_levels or nxc * nyc < min_cells or nyc < 2:
             return None
-        space_c = make_fe_space(make_channel_geometry(nxc, nyc), disc.deg_v, disc.deg_p)
+        space_c = make_fe_space(make_geometry(nxc, nyc), disc.deg_v, disc.deg_p)
         disc_c = make_disc(space_c, disc.dtype, disc.device)
         edge_down = build(nxc, nyc, level + 1)
         if edge_down is not None:

@@ -167,21 +167,25 @@ def test_main_prints_the_jax_cli_lift_and_drag(capsys, monkeypatch):
 
 UNPORTED_FLAGS = [  # (CLI module, flags, ROADMAP item the error must name)
     (t_stationary, ["--dd", "2"], "A.D9"),
-    (t_stationary, ["--cavity"], "A.D6b"),
-    (t_stationary, ["--output"], "A.D6b"),
     (t_stationary, ["--ir", "mixed"], "A.14"),
 ]
 
 
 def test_unported_flags_stop_naming_their_item():
+    """... and ``--cavity`` and ``--output``, ported, build their solver
+    (``tests/test_torch_io.py`` runs ``--output``)."""
     for cli, flags, item in UNPORTED_FLAGS:
         with pytest.raises(NotImplementedError, match=re.escape(item)):
             cli.main(["-m", "16,8", "--quiet"] + flags + CPU)
     out = subprocess.run(
-        [sys.executable, "-m", "navier_stokes_solver_tpu_torch.cli.unsteady", "--output", "--quiet"] + CPU,
+        [sys.executable, "-m", "navier_stokes_solver_tpu_torch.cli.unsteady", "--dd", "2", "--quiet"] + CPU,
         cwd=ROOT, capture_output=True, text=True, timeout=300, env={**os.environ, "PYTHONPATH": ROOT},
     )
-    assert out.returncode != 0 and "A.D6b" in out.stderr and out.stdout == ""
+    assert out.returncode != 0 and "A.D9" in out.stderr and out.stdout == ""
+    for unsteady in (False, True):
+        opts = t_parse(["-m", "16,16", "--cavity", "--output", "--quiet"] + CPU, unsteady=unsteady)
+        assert (opts.geometry, opts.write_output) == ("cavity", True)
+        assert NSSolverStationary(opts).setup().geo.inlet_kind == "constant"
 
 
 def _direct(solver, opts):

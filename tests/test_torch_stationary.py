@@ -131,18 +131,21 @@ def test_state_from_numpy_residual_and_forces(pair):
 
 
 OUTSIDE_THE_SLICE = [  # (option, ROADMAP item the message must name)
-    (dict(geometry="cavity"), "A.D6b"),
     (dict(dd=(2, 1)), "A.D9"),
-    (dict(write_output=True), "A.D6b"),
 ]
 
 
 def test_options_outside_the_slice_raise():
     """... and ``fused=True``, which the stationary solver ignores, as the
-    JAX package's does."""
+    JAX package's does; the cavity, VTU output, ``write_mesh`` and a body
+    force are ported (``tests/test_torch_cavity.py``, ``test_torch_io.py``)
+    and construct in both packages."""
     for kw, match in OUTSIDE_THE_SLICE:
         with pytest.raises(NotImplementedError, match=match):
             NSSolverStationary(SolverOptions(**{**BASE, **kw}, device="cpu"))
+    ported = dict(geometry="cavity", write_output=True, write_mesh=True, forcing=lambda x, y: (x, y))
+    assert NSSolverStationary(SolverOptions(**BASE, **ported, device="cpu")).options.geometry == "cavity"
+    assert JSolver(JOptions(**BASE, **ported)).options.geometry == "cavity"
     assert NSSolverStationary(SolverOptions(**BASE, fused=True, device="cpu")).options.fused
     assert JSolver(JOptions(**BASE, fused=True)).options.fused
 

@@ -175,17 +175,21 @@ def test_lift_drag_files_match_the_jax_package(tmp_path):
 
 
 OUTSIDE_THE_PATH = [  # (option, ROADMAP item the message must name)
-    (dict(write_output=True), "A.D6b"),
+    (dict(dd=(2, 1)), "A.D9"),
 ]
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     """Unported options raise naming their ROADMAP item; ``fused`` is
     accepted, and ``solve_fused`` refuses Re < 1 as the JAX package does
-    (construct only)."""
+    (construct only); ``write_output`` is ported: ``output(step)`` writes
+    the step's record."""
     for kw, match in OUTSIDE_THE_PATH:
         with pytest.raises(NotImplementedError, match=match):
             NSSolver(SolverOptions(**{**BASE, **kw}, device="cpu"))
+    s = NSSolver(SolverOptions(**BASE, write_output=True, output_dir=str(tmp_path), device="cpu")).setup()
+    s.output(3)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["output_003.0.vtu", "output_003.pvtu"]
     assert NSSolver(SolverOptions(**BASE, fused=True, device="cpu")).options.fused
     for cls, opts in ((NSSolver, SolverOptions(**{**BASE, "Re": 0.5}, device="cpu")), (JSolver, JOptions(**{**BASE, "Re": 0.5}))):
         with pytest.raises(ValueError, match="Re >= 1"):
