@@ -5,13 +5,14 @@
 
 Phases (each raises on failure; none catches another's).  They run in this
 order, except that phases 21 and 24 run right after phase 4, phase 19 right
-after phase 10 (on its solver), phases 23, 25 and 26 after phase 19, phase
-8 after phase 26, and phases 8, 12, 13, 14, 18, 22 and 27 together after
-it: the CPU sides of the card-vs-CPU phases (8, 12, 14, 18, 22, 27) run in
-three spawned worker processes meanwhile (18's, 22's and 27's when a
-worker is free), which are joined before phase 15 -- so the timed paths
-before and after them have the host to themselves; phase 20 runs after
-phase 16, and phase 28 after phase 17:
+after phase 10 (on its solver), phases 23, 25 and 26 after phase 19, and
+phases 8, 12, 13, 14, 18, 22, 29, 27 and 30 together after phase 26: the
+CPU sides of the card-vs-CPU phases (8, 12, 14, 18, 22, 29, 27) run in
+three spawned worker processes meanwhile (18's, 22's, 29's and 27's when a
+worker is free), and phase 30's combinations in two more, on the card;
+all are joined before phase 15 -- so the timed paths before and after
+them have the host to themselves; phase 20 runs after phase 16, and phase
+28 after phase 17:
 
   1. device   -- require CUDA; print the card (nvidia-smi name and power
                 limit) and the torch / CUDA versions;
@@ -138,7 +139,7 @@ phase 16, and phase 28 after phase 17:
                 in a worker process;
  19. fused-main -- the fused loop at full width, on phase 9's solver: its
                 host step's state written as a step-1 checkpoint, then
-                ``FUSED_MAIN_STEPS`` (two) fused steps, each one
+                ``FUSED_MAIN_STEPS`` (one, a depth cut) fused steps, each one
                 ``solve_fused(checkpoint_dir=..., max_steps_this_call=1)``
                 call resuming from the directory, phase 9's preconditioner
                 (Cahouet-Chabard, one Lp V-cycle, f32, basis 30, tol 1e-9):
@@ -213,10 +214,38 @@ phase 16, and phase 28 after phase 17:
                 through ``write_vtu_tri`` (decoded to its fields), and
                 phase 17's curved MSH2 mesh through the native and the
                 Python gmsh readers (arrays equal, both timed);
- 29. report   -- one JSON line of per-kernel results (launches from phase
-                25 and times at its finest level, 128x128 Q2/Q1 Stokes,
-                with every path's launches -- the fused 300x100 path's,
-                the ensemble's and the cavity CLI's among them, 0 on the
+ 29. ensemble-matrix-check -- phase 22 for every combination of
+                ``ENSEMBLE_MATRIX`` -- (a) FGMRES + aSIMPLE, (b) GMRES +
+                blockDiagonal + the mass leg, (c) BiCGStab + blockTriangular
+                + Cahouet-Chabard, (d) FGMRES + blockTriangular + PCD, (e)
+                FGMRES + blockTriangular + mass with ``inner_mode="fixed"``
+                and the Chebyshev-Jacobi smoother, (f) FGMRES +
+                blockTriangular + Cahouet-Chabard with the Schwarz smoother
+                -- every tangent solve capped inside the stretch where two
+                roundings agree (20; BiCGStab 10, PCD 5): the same gates.  The CPU side runs in a
+                worker process;
+ 30. ensemble-matrix -- (a)-(f) at config 5's width (60x40 Q2/Q1, B = 64,
+                1,414,592 DoFs, Re 20..100, dt 0.01, tol 1e-9, ``newton_max``
+                3, ``krylov_maxiter`` 200, f32 preconditioner, the
+                reference's sign), ``ENSEMBLE_MATRIX_STEPS`` (two) steps
+                each from rest, in two worker processes on the card ((a)
+                in one, the other five in the other) beside the
+                card-vs-CPU phases (the walls are measured while those
+                share the card and the host): step
+                walls and member-steps/s, outers per
+                step (the slowest member), each member's Newton count and
+                final residual, the members BiCGStab marked failed, the
+                launches of both kernels (counts zeroed just before each
+                combination's first step, read just after its last).
+                Gates: finite drag and lift for every member, each member's
+                residual at or below 1e-9 or the member at the Newton cap or
+                stopped by the step's stagnation break (both listed), both
+                kernels launched in each combination;
+ 31. report   -- one JSON line of per-kernel results (launches from phase
+                30, summed over its combinations, and times at its finest
+                level, 60x40 Q2/Q1 B = 64 Stokes, with every path's
+                launches -- the fused 300x100 path's, the ensemble's, the
+                cavity's and the ensemble matrix's among them, 0 on the
                 simplex paths, which run no hand-written kernel -- and every
                 shape's times beside them, the batched launches' included),
                 the nvidia-smi line, then the final ``{"ok": true,
@@ -229,7 +258,10 @@ one step (``UNSTEADY_STEPS``), then config3-lu to 12 steps
 unsteady card-only entry -- all four taken: the whole script took 1,040.8 s
 of its 1,200 s on a slow card without the last three -- then fused-main to
 one step (``FUSED_MAIN_STEPS``; its checkpoint resume is still the one
-from phase 9's state, and fused-check keeps its own round trip) -- never a
+from phase 9's state, and fused-check keeps its own round trip; taken for
+phases 29-30, whose combinations took 477 s on the card one after the
+other in this process, and now run in two worker processes beside the
+card-vs-CPU phases) -- never a
 mesh, config3's three steps, the simplex check, the fused check, the
 unsteady check's second step, the ensemble's B = 64 or its two timed
 steps, nor a kernel check's shape.  If the cavity phases ever need room,
@@ -266,9 +298,11 @@ TIMED_CALLS, HOST_CALLS, PLAIN_CALLS = 200, 50, 20
 OUTER_WINDOW = 4
 # profiler windows (``profile_call``): a recorded call bracketed by marker
 # kernels, taken again when the tracer dropped the markers
-PROFILE_ATTEMPTS, PROFILE_LEAD = 5, 3
+# markers before the recorded call, and after it: the tracer drops a trace's
+# head and, in long traces (~48k activities), its last activity
+PROFILE_ATTEMPTS, PROFILE_LEAD, PROFILE_TAIL = 5, 3, 3
 PROFILE_MARKER, PROFILE_MARKER_CYCLES = "spin_kernel", 1000
-PROFILE_WINDOWS = []  # per window: (traces taken again, leading markers the tracer dropped)
+PROFILE_WINDOWS = []  # per window: (traces taken again, markers the tracer dropped)
 SOLVES = 1  # stationary runs (cut from 2 to 1 to make room for phases 12-14)
 # the unsteady north star (BASELINE.json): 300x100 Q3/Q2, Re 100, dt 0.01
 UNSTEADY_MESH = (300, 100)
@@ -371,7 +405,7 @@ FUSED_CHECK = [
      dict(newton_max=3, krylov_maxiter=40)),
 ]
 # fused-main: fused steps after phase 9's host step, on its solver and state
-FUSED_MAIN_STEPS = 2
+FUSED_MAIN_STEPS = 1  # the fifth depth cut, from 2 (room for phases 29-30)
 # BASELINE config 5 (BASELINE.json configs[4]): the batched Reynolds-sweep
 # ensemble at scripts/ensemble_bench.py's defaults -- 60x40 Q2/Q1 (22,103
 # DoFs per member), B = 64, Re 20..100 (linspace), dt 0.01, tol 1e-9,
@@ -389,6 +423,27 @@ ENSEMBLE_METRIC = "ensemble_sweep_60x40_B64_tol1e-09_schurcahouet"  # PERF_NORTH
 ENSEMBLE_CHECK_MESH = (16, 8)
 ENSEMBLE_CHECK_RE = (20.0, 60.0, 100.0)
 ENSEMBLE_CHECK_STEPS = 2
+# the ensemble's solver matrix (combinations (a)-(f)): (label, step keywords,
+# PrecondConfig fields, ensemble-matrix-check's Krylov cap).  ensemble-matrix
+# runs each at config 5's width (f32 preconditioner), ensemble-matrix-check
+# all-f64 at ENSEMBLE_CHECK_MESH with every tangent solve capped inside the
+# stretch where two roundings agree (tests/_ensemble_matrix.py: BiCGStab
+# 10, the PCD leg's nested solves 5, the others 20)
+ENSEMBLE_MATRIX = [
+    ("a FGMRES + aSIMPLE", dict(solver_type=1, prec_type=2), {}, 20),
+    ("b GMRES + blockDiagonal + mass", dict(solver_type=0, prec_type=0), dict(schur_mode="mass"), 20),
+    ("c BiCGStab + blockTriangular + Cahouet-Chabard", dict(solver_type=2, prec_type=1),
+     dict(schur_mode="cahouet", cc_lp_cycles=1), 10),
+    ("d FGMRES + blockTriangular + PCD", dict(solver_type=1, prec_type=1), dict(schur_mode="pcd"), 5),
+    ("e FGMRES + blockTriangular + mass, fixed inner solves, Chebyshev-Jacobi smoother",
+     dict(solver_type=1, prec_type=1), dict(schur_mode="mass", inner_mode="fixed", mg_smoother="jacobi"), 20),
+    ("f FGMRES + blockTriangular + Cahouet-Chabard, Schwarz smoother", dict(solver_type=1, prec_type=1),
+     dict(schur_mode="cahouet", cc_lp_cycles=1, mg_smoother="schwarz"), 20),
+]
+ENSEMBLE_MATRIX_STEPS = 2  # from rest: the first lifts the inlet
+# ensemble-matrix's worker processes on the card: (a), whose f32 tangent solves
+# run to the 200-iteration cap, takes as long as the other five together
+ENSEMBLE_MATRIX_WORKERS = 2
 # the lid-driven cavity (geometry/cavity.py): Ghia, Ghia & Shin, J. Comput.
 # Phys. 48 (1982), Re 100, at 128x128 Q2/Q1 (148,739 DoFs; twice Ghia's 129^2
 # grid in each direction) through solve_direct with the options of
@@ -753,21 +808,41 @@ def device_events(prof):
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def profile_call(fn):
+def marker_window(names):
+    """``((start, end), markers)`` of a trace's activity names in time order:
+    the recorded call lies between the last two runs of consecutive
+    markers (the leading ones and the trailing ones), ``(start, end)`` None
+    when the trace lacks either run or anything follows the trailing one."""
+    marks = [i for i, n in enumerate(names) if PROFILE_MARKER in n]
+    runs = []
+    for i in marks:
+        if runs and runs[-1][-1] == i - 1:
+            runs[-1].append(i)
+        else:
+            runs.append([i])
+    if len(runs) < 2 or runs[-1][-1] != len(names) - 1:
+        return None, len(marks)
+    return (runs[-2][-1] + 1, runs[-1][0]), len(marks)
+
+
+def profile_call(fn, warm=None):
     """``(device activities, result, wall seconds)`` of one call of ``fn``.
     The tracer drops the first activities of a trace -- none, one, or (after
-    much untraced work) thousands -- so a warm-up call of ``fn`` runs inside
-    the trace and is discarded, then ``PROFILE_LEAD`` marker kernels
-    (``torch.cuda._sleep``'s ``spin_kernel``), the recorded call and one
-    marker.  A trace that lacks every leading or the trailing marker is
-    taken again, up to ``PROFILE_ATTEMPTS`` times.  Only the activities
-    between the last leading and the trailing marker are returned."""
+    much untraced work) thousands -- and, in long traces, the last one, so a
+    warm-up call (``warm``, by default ``fn``) runs inside the trace and is
+    discarded, then
+    ``PROFILE_LEAD`` marker kernels (``torch.cuda._sleep``'s
+    ``spin_kernel``), the recorded call and ``PROFILE_TAIL`` markers.  A
+    trace that lacks every leading or every trailing marker is taken again,
+    up to ``PROFILE_ATTEMPTS`` times.  Only the activities between the last
+    leading and the first trailing marker are returned
+    (``marker_window``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            (warm or fn)()
             torch.cuda.synchronize()
             for _ in range(PROFILE_LEAD):
                 torch.cuda._sleep(PROFILE_MARKER_CYCLES)
@@ -776,15 +851,16 @@ def profile_call(fn):
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+            for _ in range(PROFILE_TAIL):
+                torch.cuda._sleep(PROFILE_MARKER_CYCLES)
             torch.cuda.synchronize()
         events = sorted(device_events(prof), key=lambda e: e.time_range.start)
-        marks = [i for i, e in enumerate(events) if PROFILE_MARKER in e.name]
-        if len(marks) >= 2 and marks[-1] == len(events) - 1:
-            PROFILE_WINDOWS.append((attempt, PROFILE_LEAD + 1 - len(marks)))
-            return events[marks[-2] + 1 : marks[-1]], out, wall
-        print(f"[profile] trace {attempt + 1} of {PROFILE_ATTEMPTS} holds {len(marks)} of its {PROFILE_LEAD + 1} "
-              f"markers ({len(events)} device activities): taken again")
+        window, n_marks = marker_window([e.name for e in events])
+        if window is not None:
+            PROFILE_WINDOWS.append((attempt, PROFILE_LEAD + PROFILE_TAIL - n_marks))
+            return events[window[0] : window[1]], out, wall
+        print(f"[profile] trace {attempt + 1} of {PROFILE_ATTEMPTS} holds {n_marks} of its "
+              f"{PROFILE_LEAD + PROFILE_TAIL} markers ({len(events)} device activities): taken again")
     raise RuntimeError(f"the profiler dropped the leading or the trailing markers in all {PROFILE_ATTEMPTS} traces")
 
 
@@ -922,7 +998,8 @@ def profile_solve(solve, iters=OUTER_WINDOW):
     ours = {"cell_apply_F": "cell_apply_f_kernel", "scatter_v_bc": "scatter_v_kernel"}
     win, by_name = {}, {}
     for n in (1, 1 + iters):
-        ev, (_, info), wall = profile_call(lambda: solve(n))
+        # a one-iteration warm-up keeps the longer window's trace short
+        ev, (_, info), wall = profile_call(lambda: solve(n), warm=lambda: solve(1))
         by_name[n] = {}
         for e in ev:
             by_name[n][e.name] = by_name[n].get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
@@ -1359,8 +1436,8 @@ def simplex_tangent_run(device, dense, n):
 
 def cpu_job(name):
     """The CPU side of one card-vs-CPU phase -- "unsteady-check", "matrix",
-    "simplex-check", "fused-check", "ensemble-check" or "cavity-check" -- as
-    plain data, for a worker process."""
+    "simplex-check", "fused-check", "ensemble-check", "ensemble-matrix-check"
+    or "cavity-check" -- as plain data, for a worker process."""
     import torch
 
     torch.set_num_threads(CPU_SIDE_THREADS)
@@ -1378,14 +1455,16 @@ def cpu_job(name):
         return [fused_run(cpu, fields, kw) for _, fields, kw in FUSED_CHECK]
     if name == "ensemble-check":
         return ensemble_check_run(cpu)
+    if name == "ensemble-matrix-check":
+        return ensemble_matrix_check_run(cpu)
     if name == "cavity-check":
         return cavity_check_run(cpu)
     raise ValueError(f"no CPU side named {name!r}")
 
 
 def cpu_pool(workers):
-    """Spawned worker processes for ``cpu_job`` (joined when the ``with``
-    block that holds the pool ends)."""
+    """Spawned worker processes for ``cpu_job`` and ``ensemble_matrix_run``
+    (joined when the ``with`` block that holds the pool ends)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1867,9 +1946,12 @@ def phase_ensemble_kernels(device):
     return errs, times
 
 
-def ensemble_check_run(device):
+def ensemble_check_run(device, opts=None, fields=None, cap=20):
     """The ensemble check's run on one device, as plain data: per-step
-    history [T, B], host fields [B, ...], wall."""
+    history [T, B], host fields [B, ...], wall.  ``opts``/``fields``: the
+    step keywords and PrecondConfig fields (config 5's FGMRES +
+    blockTriangular + Cahouet-Chabard by default), all-f64; ``cap``: the
+    Krylov cap of every tangent solve."""
     import torch
 
     from navier_stokes_solver_tpu_torch.ensemble import run_sweep
@@ -1877,45 +1959,58 @@ def ensemble_check_run(device):
 
     disc = ensemble_disc(device, ENSEMBLE_CHECK_MESH, torch.float64)
     nus = [1.0 / re for re in ENSEMBLE_CHECK_RE]
-    cfg = PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1, vmult_dtype=None, mg_dtype=None)
+    cfg = PrecondConfig(**(fields if fields is not None else dict(schur_mode="cahouet", cc_lp_cycles=1)),
+                        vmult_dtype=None, mg_dtype=None)
+    opts = opts or dict(solver_type=1, prec_type=1)
     t0 = time.perf_counter()
-    final, hist = run_sweep(disc, nus, UNSTEADY_DT, ENSEMBLE_CHECK_STEPS, precond_cfg=cfg, solver_type=1,
-                            prec_type=1, tol=1e-9, newton_max=3, krylov_maxiter=20)
+    final, hist = run_sweep(disc, nus, UNSTEADY_DT, ENSEMBLE_CHECK_STEPS, precond_cfg=cfg, tol=1e-9, newton_max=3,
+                            krylov_maxiter=cap, **opts)
     return {"hist": {k: v.cpu().numpy() for k, v in hist.items()},
             "fields": tuple(t.cpu().numpy() for t in final.solution), "wall_s": time.perf_counter() - t0}
+
+
+def ensemble_matrix_check_run(device):
+    """``ensemble_check_run`` of every combination of ``ENSEMBLE_MATRIX``."""
+    return [ensemble_check_run(device, opts, fields, cap) for _, opts, fields, cap in ENSEMBLE_MATRIX]
 
 
 def phase_ensemble_check(device, cpu_side=None):
     """A small ensemble on the card against the same on the CPU
     (``cpu_side``: the future of ``cpu_job("ensemble-check")``; by default
-    one worker process started here): per step and member the Newton and
-    Krylov counts within 1, drag and lift rtol 1e-7 (the lift floored at
-    1e-7 of the drag), each member's fields within 1e-6 of its magnitude."""
-    import numpy as np
-
+    one worker process started here): ``compare_ensemble_runs``."""
     if cpu_side is None:
         with cpu_pool(1) as pool:
             return phase_ensemble_check(device, pool.submit(cpu_job, "ensemble-check"))
-    g = ensemble_check_run(device)
-    c = cpu_side.result()
     mx, my = ENSEMBLE_CHECK_MESH
     where = f"{mx}x{my} Q2/Q1, Re {list(ENSEMBLE_CHECK_RE)}, {ENSEMBLE_CHECK_STEPS} steps"
-    print(f"[ensemble-check] {where}: walls card {g['wall_s']:.2f} s, CPU {c['wall_s']:.2f} s")
+    compare_ensemble_runs("ensemble-check", where, ensemble_check_run(device), cpu_side.result())
+
+
+def compare_ensemble_runs(tag, where, g, c):
+    """An ensemble run on the card (``g``) against the same on the CPU
+    (``c``), as ``ensemble_check_run`` returns them: per step and member the
+    Newton and Krylov counts within 1, drag and lift rtol 1e-7 (the lift
+    floored at 1e-7 of the drag), each member's fields within 1e-6 of its
+    magnitude."""
+    import numpy as np
+
+    print(f"[{tag}] {where}: walls card {g['wall_s']:.2f} s, CPU {c['wall_s']:.2f} s")
     for k in ("newton_iters", "krylov_iters"):
         a, b = g["hist"][k], c["hist"][k]
-        print(f"[ensemble-check] {k} per step and member: card {a.tolist()}, CPU {b.tolist()}")
+        print(f"[{tag}] {k} per step and member: card {a.tolist()}, CPU {b.tolist()}")
         if a.shape != b.shape or np.abs(a.astype(int) - b.astype(int)).max() > 1:
-            raise RuntimeError(f"ensemble-check: {k} differ by more than 1")
+            raise RuntimeError(f"{tag}: {where}: {k} differ by more than 1")
     dg, dc, lg, lc = g["hist"]["drag"], c["hist"]["drag"], g["hist"]["lift"], c["hist"]["lift"]
-    print(f"[ensemble-check] drag card {dg.tolist()} CPU {dc.tolist()}; max rel diff {float((np.abs(dg - dc) / np.abs(dc)).max()):.3e}; lift max |diff| {float(np.abs(lg - lc).max()):.3e}")
+    rel = np.abs(dg - dc) / np.where(dc == 0.0, 1.0, np.abs(dc))  # (b) stops at rest: drag 0
+    print(f"[{tag}] drag card {dg.tolist()} CPU {dc.tolist()}; max rel diff {float(rel.max()):.3e}; lift max |diff| {float(np.abs(lg - lc).max()):.3e}")
     if not (np.all(np.abs(dg - dc) <= 1e-7 * np.abs(dc)) and np.all(np.abs(lg - lc) <= 1e-7 * np.maximum(np.abs(lc), np.abs(dc)))):
-        raise RuntimeError("ensemble-check: drag/lift outside rtol 1e-7")
+        raise RuntimeError(f"{tag}: {where}: drag/lift outside rtol 1e-7")
     for field, a, b in zip(("velocity", "pressure"), g["fields"], c["fields"]):
         for m in range(a.shape[0]):
             err, scale = float(np.abs(a[m] - b[m]).max()), float(np.abs(b[m]).max())
-            print(f"[ensemble-check] member {m} {field} max|card - CPU| {err:.3e} (max|CPU| {scale:.3e})")
+            print(f"[{tag}] member {m} {field} max|card - CPU| {err:.3e} (max|CPU| {scale:.3e})")
             if not err <= FIELD_GATE * scale:
-                raise RuntimeError(f"ensemble-check: member {m} {field} differs by {err} > {FIELD_GATE} x {scale}")
+                raise RuntimeError(f"{tag}: {where}: member {m} {field} differs by {err} > {FIELD_GATE} x {scale}")
 
 
 def ensemble_outer_profile(disc, nus, ts, cfg, dt):
@@ -2029,6 +2124,160 @@ def phase_ensemble_main(device):
     print(f"[ensemble-main] the JAX package's record (PERF_NORTHSTAR.json, {ref['extra']['device']}, another chip): {ref['value']} member-steps/s, median step {ref['extra']['median_step_s']} s")
     return {"counts": counts, "steps": steps, "median_step_s": t_b, "member_steps_per_s": rate,
             "control_step_s": t_1, "batch_efficiency_vs_single": eff, "outer": per, "outer_single": per1}
+
+
+# ---------------------------------------------------------------------------
+# 29. ensemble-matrix-check, 30. ensemble-matrix
+# ---------------------------------------------------------------------------
+
+
+def phase_ensemble_matrix_check(device, cpu_side=None):
+    """Every combination of ``ENSEMBLE_MATRIX`` as a small ensemble on the
+    card against the same on the CPU (``cpu_side``: the future of
+    ``cpu_job("ensemble-matrix-check")``; by default one worker process
+    started here): ``compare_ensemble_runs`` for each."""
+    if cpu_side is None:
+        with cpu_pool(1) as pool:
+            return phase_ensemble_matrix_check(device, pool.submit(cpu_job, "ensemble-matrix-check"))
+    mx, my = ENSEMBLE_CHECK_MESH
+    for (label, _, _, cap), g, c in zip(ENSEMBLE_MATRIX, ensemble_matrix_check_run(device), cpu_side.result(),
+                                         strict=True):
+        where = (f"({label}) {mx}x{my} Q2/Q1, Re {list(ENSEMBLE_CHECK_RE)}, {ENSEMBLE_CHECK_STEPS} steps, "
+                 f"tangent solves capped at {cap}")
+        compare_ensemble_runs("ensemble-matrix-check", where, g, c)
+
+
+def watch_tangent_solves():
+    """Wrap ``api.kernels.solve_kernel`` (the fused step's tangent solves):
+    returns the list it appends to, per batched call, ``(members that
+    iterated, iterations, BiCGStab's failed flags)`` as host arrays, and
+    the function that restores the original."""
+    import numpy as np
+
+    from navier_stokes_solver_tpu_torch.api import kernels
+
+    calls, solve = [], kernels.solve_kernel
+
+    def watched(*a, **kw):
+        x, info = solve(*a, **kw)
+        calls.append((np.asarray(kw["active"], bool), np.asarray(info.iters), np.asarray(info.failed, bool)))
+        return x, info
+
+    kernels.solve_kernel = watched
+
+    def restore():
+        kernels.solve_kernel = solve
+
+    return calls, restore
+
+
+def ensemble_matrix_run(index):
+    """Combination ``ENSEMBLE_MATRIX[index]`` at config 5's width (60x40
+    Q2/Q1, B = 64, Re 20..100, dt 0.01, tol 1e-9, ``newton_max`` 3,
+    ``krylov_maxiter`` 200, f32 preconditioner, the reference's sign) on the
+    card, as plain data, for a worker process: ``ENSEMBLE_MATRIX_STEPS``
+    steps from rest through ``ensemble.make_ensemble_step``, the kernel
+    counts zeroed just before the first step and read just after the last.
+    Per step: wall, member-steps/s, each member's Newton count, Krylov total
+    and final residual, drag and lift, the members BiCGStab marked failed
+    in some tangent solve and those whose last tangent solve took no
+    iteration (the step's stagnation break)."""
+    import numpy as np
+    import torch
+
+    from navier_stokes_solver_tpu_torch.ensemble import initial_ensemble_state, make_ensemble_step
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    torch.set_num_threads(1)  # a host-bound launch loop: leave the cores to the CPU sides
+    _, opts, fields, _ = ENSEMBLE_MATRIX[index]
+    device = torch.device("cuda")
+    B, dt = ENSEMBLE_B, UNSTEADY_DT
+    disc = ensemble_disc(device, ENSEMBLE_MESH, torch.float64)
+    nus = ensemble_viscosities(disc, ENSEMBLE_RE, B)
+    step = make_ensemble_step(disc, tol=1e-9, newton_max=ENSEMBLE_NEWTON_MAX, krylov_maxiter=200,
+                              precond_cfg=PrecondConfig(**fields), **opts)
+    ts = initial_ensemble_state(disc, B)
+    calls, restore = watch_tangent_solves()
+    steps = []
+    try:
+        reset_counts()
+        for _ in range(ENSEMBLE_MATRIX_STEPS):
+            del calls[:]
+            t0 = time.perf_counter()
+            ts = step(ts, nus, dt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = ts.stats
+            failed = np.zeros(B, bool)
+            stalled = np.zeros(B, bool)
+            for act, iters, fl in calls:
+                failed |= act & fl
+                stalled = np.where(act, iters == 0, stalled)
+            steps.append({
+                "step": int(ts.step[0]), "wall_s": wall, "member_steps_per_s": B / wall,
+                "newton_iters": st.newton_iters.tolist(), "krylov_iters": st.krylov_iters.tolist(),
+                "final_residual": st.final_residual.tolist(), "drag": ts.drag.tolist(),
+                "lift": ts.lift.tolist(), "outers_slowest": int(st.krylov_iters.max()),
+                "bicgstab_failed": [int(m) for m in np.flatnonzero(failed)],
+                "stalled": [int(m) for m in np.flatnonzero(stalled)],
+            })
+        counts = read_counts()
+    finally:
+        restore()
+    finite = bool(torch.isfinite(ts.solution.u).all() and torch.isfinite(ts.solution.p).all())
+    return {"steps": steps, "counts": counts, "fields_finite": finite}
+
+
+def start_ensemble_matrix(pool):
+    """Submit every combination of ``ENSEMBLE_MATRIX`` to ``pool``
+    (``ENSEMBLE_MATRIX_WORKERS`` spawned processes on the card): (a) takes
+    one, the others run after each other in the second.  The futures of
+    their ``ensemble_matrix_run``."""
+    return [pool.submit(ensemble_matrix_run, i) for i in range(len(ENSEMBLE_MATRIX))]
+
+
+def phase_ensemble_matrix(device, runs=None):
+    """Every combination of ``ENSEMBLE_MATRIX`` at config 5's width
+    (``runs``: the futures of ``start_ensemble_matrix``; by default its
+    worker processes started here).  The card idles most of the time under
+    this host-bound path, so the combinations run in worker processes
+    beside other work -- in ``main``, beside the card-vs-CPU phases -- and
+    their walls are measured while that work shares the card and the host.
+    Gates: finite drag, lift and fields for every member; each member's
+    final residual at or below 1e-9, or the member at the Newton cap, or
+    stopped by the step's stagnation break -- the latter two listed; both
+    kernels launched in each combination."""
+    import numpy as np
+
+    if runs is None:
+        with cpu_pool(ENSEMBLE_MATRIX_WORKERS) as pool:
+            return phase_ensemble_matrix(device, start_ensemble_matrix(pool))
+    card = nvidia_smi()
+    B, (mx, my) = ENSEMBLE_B, ENSEMBLE_MESH
+    runs = [r.result() for r in runs]
+    out = {}
+    for (label, _, _, _), run in zip(ENSEMBLE_MATRIX, runs, strict=True):
+        steps, counts = run["steps"], run["counts"]
+        for rec in steps:
+            n, res = np.asarray(rec["newton_iters"]), np.asarray(rec["final_residual"])
+            on_tol = res <= 1e-9
+            capped = [int(m) for m in np.flatnonzero(~on_tol & (n >= ENSEMBLE_NEWTON_MAX))]
+            stalled = [m for m in rec["stalled"] if not on_tol[m] and n[m] < ENSEMBLE_NEWTON_MAX]
+            other = [int(m) for m in np.flatnonzero(~on_tol & (n < ENSEMBLE_NEWTON_MAX)) if m not in stalled]
+            print(f"[ensemble-matrix] ({label}) step {rec['step']}: wall {rec['wall_s']!r} s, {rec['member_steps_per_s']!r} member-steps/s; outers (slowest member) {rec['outers_slowest']}, Krylov totals {int(min(rec['krylov_iters']))}-{rec['outers_slowest']}; Newton iterations per member {rec['newton_iters']}; final residuals per member {rec['final_residual']}")
+            print(f"[ensemble-matrix] ({label}) step {rec['step']}: residual <= 1e-9 for {int(on_tol.sum())} of {B} members; at the Newton cap ({ENSEMBLE_NEWTON_MAX}) above it: members {capped}; stopped by the stagnation break above it: members {stalled}; BiCGStab failed (breakdown) in some tangent solve: members {rec['bicgstab_failed']}")
+            if other:
+                raise RuntimeError(f"ensemble-matrix: ({label}) step {rec['step']}: members {other} stopped above the Newton tolerance before the cap without a stagnation break")
+            if not (np.isfinite(rec["drag"]).all() and np.isfinite(rec["lift"]).all()):
+                raise RuntimeError(f"ensemble-matrix: ({label}) step {rec['step']}: non-finite drag or lift")
+        if not run["fields_finite"]:
+            raise RuntimeError(f"ensemble-matrix: ({label}) the final fields are not finite")
+        print(f"[ensemble-matrix] ({label}) {mx}x{my} Q2/Q1, B {B}, Re {ENSEMBLE_RE[0]:g}..{ENSEMBLE_RE[1]:g}: step walls {[r['wall_s'] for r in steps]} s ({card}; measured in {ENSEMBLE_MATRIX_WORKERS} worker processes beside the card-vs-CPU phases); launches {json.dumps(counts)}")
+        for name, c in counts.items():
+            if c["launches"] <= 0:
+                raise RuntimeError(f"ensemble-matrix: ({label}) never launched {name}")
+        out[label] = run
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2310,12 +2559,25 @@ def phase_native_io(state300, simplex3, msh_path):
 # ---------------------------------------------------------------------------
 
 
+def summed_counts(runs):
+    """``read_counts`` records of several runs, the launches added."""
+    out = {}
+    for counts in runs:
+        for name, c in counts.items():
+            acc = out.setdefault(name, {"launches": 0, "by_shape": {}})
+            acc["launches"] += c["launches"]
+            for shape, n in c["by_shape"].items():
+                acc["by_shape"][shape] = acc["by_shape"].get(shape, 0) + n
+    return out
+
+
 def kernel_line(errs, times, counts, counts_by_path):
     """The kernels of the slices' main paths: launches from this slice's
-    (the 128x128 Q2/Q1 cavity, cavity-ghia) and times at its finest level,
-    in the Stokes regime (the one with a library yardstick); launches on
-    every main path, and times at every shape, beside them."""
-    mesh = f"cavity {CAVITY_MESH[0]}x{CAVITY_MESH[1]} Q2/Q1 float32"
+    (the ensemble's solver matrix at config 5's width, ensemble-matrix)
+    and times at its finest level, batched over its B members, in the
+    Stokes regime (the one with a library yardstick); launches on every
+    main path, and times at every shape, beside them."""
+    mesh = f"{ENSEMBLE_MESH[0]}x{ENSEMBLE_MESH[1]} Q2/Q1 float32 B{ENSEMBLE_B}"
     main_tag = {"cell_apply_F": f"{mesh} stokes", "scatter_v_bc": f"{mesh} bc"}
     rows = []
     for name in ("cell_apply_F", "scatter_v_bc"):
@@ -2345,17 +2607,27 @@ def kernel_line(errs, times, counts, counts_by_path):
 def main():
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(name):
+        """Print the wall of the phases since the previous lap."""
+        now = time.perf_counter()
+        print(f"[budget] {name}: {now - laps[-1]:.1f} s (script at {now - t_start:.1f} s)")
+        laps.append(now)
+
     device = phase_device()
     import torch
 
     print(
         f"[budget] depth cuts taken: stationary bench solves {SOLVES} of 2; unsteady 300x100 steps {UNSTEADY_STEPS} of 2 "
         f"(of the 800 of T = 8); config3-lu and config3-lu-fused {CONFIG3_LU_STEPS} of 20 steps (of the record's 800); "
-        f"phase 12's unsteady card-only entry dropped; fused-main {FUSED_MAIN_STEPS} of 2 steps. Not cut: "
+        f"phase 12's unsteady card-only entry dropped; fused-main {FUSED_MAIN_STEPS} of 2 steps; ensemble-matrix's "
+        f"combinations in {ENSEMBLE_MATRIX_WORKERS} worker processes beside the card-vs-CPU phases. Not cut: "
         f"unsteady-check steps {CHECK_STEPS}, config 1, matrix at {MATRIX_MESH[0]}x{MATRIX_MESH[1]}, simplex check at "
         f"-M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]}, fused check (3 and 2 steps), config3 its 3 steps, "
         f"simplex-file one step, ensemble-main B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps, cavity-ghia at "
-        f"{CAVITY_MESH[0]}x{CAVITY_MESH[1]}"
+        f"{CAVITY_MESH[0]}x{CAVITY_MESH[1]}, ensemble-matrix B {ENSEMBLE_B}, {len(ENSEMBLE_MATRIX)} combinations, "
+        f"{ENSEMBLE_MATRIX_STEPS} steps each"
     )
     phase_build()
     errs = phase_check(device)
@@ -2365,10 +2637,12 @@ def main():
             errs[name] = max(errs[name], more_errs[name])
             times[name].update(more_times[name])
     phase_launches(device)
+    lap("kernel build, checks, timings, launches")
     s1, config1 = phase_config1(device)
     c1outer = phase_outer(s1, regimes=(True,), tag="config1-outer")
     print(f"[config1] setup {config1['setup_s']:.3f} s, solve wall {config1['wall_s']!r} s, {config1['outer']} outers; Stokes regime per outer iteration: {c1outer['stokes']['kernels']!r} device kernels, {c1outer['stokes']['device_ms']!r} device ms, {c1outer['stokes']['readbacks']!r} readbacks, busy {c1outer['stokes']['busy']:.4f}")
     del s1
+    lap("config1")
     with open(os.path.join(ROOT, "BENCH_r05.json")) as f:
         ref = json.load(f)["parsed"]["extra"]
     runs = []
@@ -2378,42 +2652,63 @@ def main():
     outer = phase_outer(s)
     print(f"[main] solve_newton walls {[r['wall_s'] for r in runs]} s; outer iterations {[r['outer'] for r in runs]}; kernels per outer iteration newton {outer['newton']['kernels']!r}, stokes {outer['stokes']['kernels']!r}")
     del s
+    lap("stationary bench solve")
     su, unsteady = phase_unsteady_main(device)
     uouter = phase_outer(su, regimes=(False,), tag="unsteady-outer")
     print(f"[unsteady-main] per-step walls {[r['wall_s'] for r in unsteady['steps']]} s; outer iterations per step {[r['outer'] for r in unsteady['steps']]}; Newton regime per outer iteration: {uouter['newton']['kernels']!r} device kernels, {uouter['newton']['readbacks']!r} readbacks, busy {uouter['newton']['busy']:.4f}")
     fused_main = phase_fused_main(su)
+    lap("unsteady-main and fused-main")
     state300 = (su.space, *su.fields())
     del su
     ensemble = phase_ensemble_main(device)
+    lap("ensemble-main")
     print(f"[ensemble-main] {ensemble['member_steps_per_s']!r} member-steps/s, median step {ensemble['median_step_s']!r} s, B = 1 control {ensemble['control_step_s']!r} s, batch_efficiency_vs_single {ensemble['batch_efficiency_vs_single']!r}; per outer iteration {ensemble['outer']['kernels']!r} device kernels, {ensemble['outer']['device_ms']!r} device ms, {ensemble['outer']['wall_ms']!r} ms wall, {ensemble['outer']['readbacks']!r} readbacks, busy {ensemble['outer']['busy']:.4f}, our kernels {ensemble['outer']['ours_share']:.4f} of the device time")
     sc, cavity = phase_cavity_ghia(device)
     couter = phase_outer(sc, regimes=(False,), tag="cavity-outer")
     print(f"[cavity-ghia] per outer iteration at the converged state, Newton regime (the Stokes rhs of a converged cavity is zero): {couter['newton']['kernels']!r} device kernels, {couter['newton']['device_ms']!r} device ms, {couter['newton']['wall_ms']!r} ms wall, {couter['newton']['readbacks']!r} readbacks, busy {couter['newton']['busy']:.4f}")
     del sc
     _, cavity_cli = phase_cavity_cli(device)
+    lap("cavity-ghia and cavity-cli")
     # the card-vs-CPU phases, after the timed paths before them and before
-    # those after them: their CPU sides run meanwhile in worker processes
+    # those after them: their CPU sides run meanwhile in worker processes,
+    # and so do ensemble-matrix's combinations, on the card (a host-bound
+    # path: the card idles most of the time under each of them)
     t_checks = time.perf_counter()
-    with cpu_pool(3) as pool:
-        # the fourth to sixth CPU sides start when a worker is free
+    with cpu_pool(3) as pool, cpu_pool(ENSEMBLE_MATRIX_WORKERS) as card_pool:
+        # the fourth to seventh CPU sides start when a worker is free
         cpu = {name: pool.submit(cpu_job, name)
                for name in ("unsteady-check", "matrix", "simplex-check", "fused-check", "ensemble-check",
-                            "cavity-check")}
+                            "ensemble-matrix-check", "cavity-check")}
+        matrix_runs = start_ensemble_matrix(card_pool)
         phase_unsteady_check(device, cpu["unsteady-check"])
+        lap("unsteady-check (the card side, and the wait for its CPU side)")
         phase_matrix(device, cpu["matrix"])
+        lap("matrix (the card side, and the wait for its CPU side)")
         phase_profile(device)
+        lap("profile (the card side, and the wait for its CPU side)")
         phase_simplex_check(device, cpu["simplex-check"])
+        lap("simplex-check (the card side, and the wait for its CPU side)")
         phase_fused_check(device, cpu["fused-check"])
+        lap("fused-check (the card side, and the wait for its CPU side)")
         phase_ensemble_check(device, cpu["ensemble-check"])
+        lap("ensemble-check (the card side, and the wait for its CPU side)")
+        phase_ensemble_matrix_check(device, cpu["ensemble-matrix-check"])
+        lap("ensemble-matrix-check (the card side, and the wait for its CPU side)")
         phase_cavity_check(device, cpu["cavity-check"])
-    print(f"[budget] card-vs-CPU phases (8, 12-14, 18, 22, 27) {time.perf_counter() - t_checks:.1f} s")
+        lap("cavity-check (the card side, and the wait for its CPU side)")
+        matrix = phase_ensemble_matrix(device, matrix_runs)
+        lap("ensemble-matrix (the wait for its workers after the card-vs-CPU phases)")
+    print(f"[budget] ensemble-matrix and the card-vs-CPU phases (8, 12-14, 18, 22, 27, 29-30) {time.perf_counter() - t_checks:.1f} s")
     s3, config3 = phase_config3(device)
     c3outer = phase_outer(s3, regimes=(False,), tag="config3-outer")
     print(f"[config3] setup {config3['setup_s']:.3f} s, per-step walls {[r['wall_s'] for r in config3['steps']]} s, Newton iterations per step {[r['newton_iterations'] for r in config3['steps']]}, outers per step {[r['outer'] for r in config3['steps']]}; Newton regime per outer iteration: {c3outer['newton']['kernels']!r} device kernels, {c3outer['newton']['device_ms']!r} device ms, {c3outer['newton']['wall_ms']!r} ms wall, {c3outer['newton']['readbacks']!r} readbacks, busy {c3outer['newton']['busy']:.4f}")
     simplex3 = (s3.disc, *s3.fields())
     del s3
+    lap("config3")
     _, config3_lu = phase_config3_lu(device)
+    lap("config3-lu")
     _, config3_lu_fused = phase_config3_lu_fused(device)
+    lap("config3-lu-fused")
     with tempfile.TemporaryDirectory() as tmp:
         _, simplex_file = phase_simplex_file(device, tmp)
         phase_native_io(state300, simplex3, os.path.join(tmp, "curved.msh"))
@@ -2422,11 +2717,12 @@ def main():
         "config1_blockdiag": config1["counts"], "simplex_config3": config3["counts"],
         "simplex_config3_lu": config3_lu["counts"], "simplex_config3_lu_fused": config3_lu_fused["counts"],
         "simplex_file": simplex_file["counts"], "ensemble": ensemble["counts"],
+        "ensemble_matrix": summed_counts(c["counts"] for c in matrix.values()),
         "cavity_ghia": cavity["counts"], "cavity_cli": cavity_cli["counts"],
     }
-    print(kernel_line(errs, times, cavity["counts"], counts_by_path))
+    print(kernel_line(errs, times, counts_by_path["ensemble_matrix"], counts_by_path))
     print(f"[profile] {len(PROFILE_WINDOWS)} profiler windows: {sum(a for a, _ in PROFILE_WINDOWS)} traces taken "
-          f"again; {sum(d > 0 for _, d in PROFILE_WINDOWS)} of the kept traces lost leading markers "
+          f"again; {sum(d > 0 for _, d in PROFILE_WINDOWS)} of the kept traces lost markers "
           f"({sum(d for _, d in PROFILE_WINDOWS)} in all)")
     print(f"[budget] script wall {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())

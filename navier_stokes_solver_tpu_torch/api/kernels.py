@@ -12,7 +12,15 @@ from __future__ import annotations
 
 import torch
 
-from navier_stokes_solver_tpu_torch.krylov import bicgstab, bnorm, fgmres, fgmres_batched, gmres, gmres_batched
+from navier_stokes_solver_tpu_torch.krylov import (
+    bicgstab,
+    bicgstab_batched,
+    bnorm,
+    fgmres,
+    fgmres_batched,
+    gmres,
+    gmres_batched,
+)
 from navier_stokes_solver_tpu_torch.ops import Blocks, matfree, norm
 from navier_stokes_solver_tpu_torch.ops.blocks import is_batched
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
@@ -26,7 +34,7 @@ from navier_stokes_solver_tpu_torch.unstructured import ops as simplex_ops
 __all__ = ["assemble_kernel", "solve_kernel", "update_solution", "lift_drag_kernel"]
 
 _SOLVERS = {0: gmres, 1: fgmres, 2: bicgstab}
-_SOLVERS_BATCHED = {0: gmres_batched, 1: fgmres_batched}
+_SOLVERS_BATCHED = {0: gmres_batched, 1: fgmres_batched, 2: bicgstab_batched}
 
 
 def _ops_for(disc):
@@ -81,7 +89,8 @@ def solve_kernel(
     2) takes no restart basis and no GMRES-IR cycles.
 
     With an ensemble's [B] ``nu`` the B members are solved together
-    (``krylov.fgmres_batched``/``gmres_batched``): ``active`` ([B] bool,
+    (``krylov.gmres_batched``/``fgmres_batched``/``bicgstab_batched``):
+    ``active`` ([B] bool,
     host) selects the members that iterate -- the others keep
     ``delta_prev`` -- and ``SolveInfo``'s fields are [B] arrays.  The
     combinations that batch are checked once, where the ensemble's step is
@@ -107,15 +116,13 @@ def solve_kernel(
                 u=torch.where(disc.u_active, x0.u, 0.0),
                 p=torch.where(disc.p_active, x0.p, 0.0),
             )
+    kw = {} if solver_type == 2 else dict(basis=basis)
     if batched:
         return _SOLVERS_BATCHED[solver_type](
-            A, rhs, x0, tol=tol, maxiter=maxiter, M=M, basis=basis, active=active
+            A, rhs, x0, tol=tol, maxiter=maxiter, M=M, active=active, **kw
         )
-    kw = {}
     if solver_type != 2:
-        kw = dict(basis=basis, lo=make_krylov_lo(
-            prec_type, ctx, variant=variant, cfg=precond_cfg
-        ))
+        kw["lo"] = make_krylov_lo(prec_type, ctx, variant=variant, cfg=precond_cfg)
     return _SOLVERS[solver_type](A, rhs, x0, tol=tol, maxiter=maxiter, M=M, **kw)
 
 

@@ -19,15 +19,15 @@ of a frozen member -- a 0/0 of a converged normalisation included, which
 the clamps below also guard -- reaches an active one.
 
 Each iteration reads back one [B] row to the host: the Hessenberg
-columns (GMRES), the residual norms and curvatures (CG).  The (basis+1) x
+columns (GMRES), the residual norms and curvatures (CG), the residual
+norms and the three breakdown denominators (BiCGStab).  The (basis+1) x
 basis Hessenberg systems and their rotations are run on the host in
 NumPy, vectorized over the members, in the cycle's working precision --
 the arithmetic of ``solvers._givens_column``, element for element; the
 back substitution is ``solvers._back_substitute`` itself, member by
 member.  ``SolveInfo``'s fields are [B] NumPy arrays.
 
-GMRES-IR cycles (``LowCycle``) and BiCGStab have no batched form yet
-(ROADMAP A.D8b).
+GMRES-IR cycles (``LowCycle``) have no batched form yet (ROADMAP A.D8b).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from navier_stokes_solver_tpu_torch.krylov.solvers import (
     _pack,
 )
 
-__all__ = ["bvdot", "bnorm", "gmres_batched", "fgmres_batched", "cg_batched"]
+__all__ = ["bvdot", "bnorm", "gmres_batched", "fgmres_batched", "bicgstab_batched", "cg_batched"]
 
 
 def bvdot(x, y) -> torch.Tensor:
@@ -256,6 +256,85 @@ def fgmres_batched(matvec, b, x0, *, tol, maxiter=1000, M=None, basis=30, active
     """Flexible GMRES of each member (``solvers.fgmres``)."""
     return _gmres_core(matvec, b, x0, tol=tol, maxiter=maxiter, M=M, basis=basis,
                        flexible=True, active=active)
+
+
+# ---------------------------------------------------------------------------
+# BiCGStab
+# ---------------------------------------------------------------------------
+
+
+def bicgstab_batched(matvec, b, x0, *, tol, maxiter=1000, M=None, active=None):
+    """Preconditioned BiCGStab of each member (``solvers.bicgstab``).
+
+    Per member: the breakdown guard -- a vanishing ``rho = <rbar, r>``,
+    ``<rbar, v>`` or ``<t, t>`` (below ``_EPS_BREAKDOWN``) or a non-finite
+    residual keeps the previous iterate and stops the member, ``failed``;
+    the failed step counts as an iteration (the JAX package's batched
+    loop) -- while the other members go on.  ``tol``: a number or [B]
+    absolute tolerances; ``active``: optional [B] bool (host), members
+    outside it keep ``x0``.
+    """
+    M = M or _identity
+    bl = _leaves(b)
+    B, dev = bl[0].shape[0], bl[0].device
+    tol_h = _host_tol(tol, B)
+    act = np.ones(B, bool) if active is None else np.asarray(active, bool).copy()
+    r = _map(torch.sub, b, matvec(x0))
+    rbar = r
+    res = bnorm(r).cpu().numpy().astype(np.float64)
+    x = x0
+    p = v = _map(torch.zeros_like, r)
+    one = torch.ones(B, dtype=bl[0].dtype, device=dev)
+    rho = alpha = omega = one
+    it = np.zeros(B, np.int64)
+    failed = np.zeros(B, bool)
+    with np.errstate(invalid="ignore"):
+        done = ~act | (res <= tol_h)
+    while True:
+        run = ~done & ~failed & (it < maxiter)
+        if not run.any():
+            break
+        run_t = _mask_on(run, dev)
+        # a stopped member's input is zero: the nested solves stop at once
+        hold = lambda y: _map(lambda a: torch.where(_col(run_t, a), a, 0.0), y)
+        rho_new = bvdot(rbar, r)
+        beta = (rho_new / rho) * (alpha / omega)
+        p_new = hold(_map(lambda pi, vi, ri: _col(beta, pi) * (pi - _col(omega, vi) * vi) + ri, p, v, r))
+        y = M(p_new)
+        v_new = matvec(y)
+        denom = bvdot(rbar, v_new)
+        alpha_new = rho_new / denom
+        s = hold(_map(lambda ri, vi: ri - _col(alpha_new, vi) * vi, r, v_new))
+        z = M(s)
+        t = matvec(z)
+        tt = bvdot(t, t)
+        omega_new = bvdot(t, s) / tt
+        x_new = _map(lambda xi, yi, zi: xi + (_col(alpha_new, yi) * yi + _col(omega_new, zi) * zi), x, y, z)
+        r_new = _map(lambda si, ti: si - _col(omega_new, ti) * ti, s, t)
+        # the one host readback of this iteration: [4, B]
+        rho_h, denom_h, tt_h, res_new = (
+            torch.stack([rho_new, denom, tt, bnorm(r_new)]).cpu().numpy().astype(np.float64)
+        )
+        it[run] += 1
+        with np.errstate(invalid="ignore"):
+            bad = run & ~(
+                (np.abs(rho_h) >= _EPS_BREAKDOWN)
+                & (np.abs(denom_h) >= _EPS_BREAKDOWN)
+                & (np.abs(tt_h) >= _EPS_BREAKDOWN)
+                & np.isfinite(res_new)
+            )
+        failed |= bad
+        ok = run & ~bad
+        ok_t = _mask_on(ok, dev)
+        x, r, p, v = (_select(ok_t, a, c) for a, c in ((x_new, x), (r_new, r), (p_new, p), (v_new, v)))
+        rho, alpha, omega = (torch.where(ok_t, a, c) for a, c in
+                             ((rho_new, rho), (alpha_new, alpha), (omega_new, omega)))
+        res = np.where(ok, res_new, res)
+        with np.errstate(invalid="ignore"):
+            done = done | (ok & (res <= tol_h))
+    with np.errstate(invalid="ignore"):
+        converged = done & act & (res <= tol_h)
+    return x, SolveInfo(it, converged, res, failed)
 
 
 # ---------------------------------------------------------------------------

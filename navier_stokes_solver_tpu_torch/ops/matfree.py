@@ -302,15 +302,16 @@ def apply_Fp(disc: Disc, nu, inv_dt, linq, x_p: torch.Tensor) -> torch.Tensor:
     """
     free = disc.p_free
     loc = _gather_p(disc, torch.where(free, x_p, 0.0))
-    pv = torch.einsum("qn,nyx->qyx", disc.phi_p, loc)
+    pv = torch.einsum("qn,n...->q...", disc.phi_p, loc)
     gx, gy = _p_grads(disc, loc)
-    out = nu * _p_diffusion(disc, gx, gy)
+    diff = _p_diffusion(disc, gx, gy)
+    out = per_member(nu, diff.dim(), 1) * diff
     # reaction + convection legs: (p/dt + u_k . grad p, psi)
     f_val = inv_dt * pv
     if linq is not None:
-        f_val = f_val + linq.u[:, 0] * gx + linq.u[:, 1] * gy
+        f_val = f_val + linq.u[..., 0, :, :] * gx + linq.u[..., 1, :, :] * gy
     phi_w = disc.phi_p * disc.w_q[:, None]
-    out = out + torch.einsum("qn,qyx->nyx", phi_w, f_val * disc.cell_mask)
+    out = out + torch.einsum("qn,q...->n...", phi_w, f_val * disc.cell_mask)
     y = _scatter_p(disc, out)
     return torch.where(free, y, x_p)
 

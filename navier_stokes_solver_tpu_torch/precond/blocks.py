@@ -21,11 +21,12 @@ replaces the block preconditioner by an f32 dense LU of the whole saddle
 Jacobian where the system is small enough (``make_direct_lu``).
 
 An ensemble's context (a [B] ``nu``, ``LinearContext.batched``) builds one
-preconditioner for its B members: blockTriangular with the geometric-MG
-velocity leg (GMRES smoother) and the Cahouet-Chabard pressure leg, the
-nested solves the batched Krylov solvers.  ``check_batched``, called where
-the ensemble's step is built, names what has no batched form yet (ROADMAP
-A.D8b).
+preconditioner for its B members -- blockDiagonal, blockTriangular or the
+unsteady aSIMPLE, every pressure leg, the nested or the fixed inner
+solves, every V-cycle smoother -- the nested solves the batched Krylov
+solvers, the spectral estimates one per member.  ``check_batched``, called
+where the ensemble's step is built, names what has no batched form yet
+(ROADMAP A.D8b).
 """
 
 from __future__ import annotations
@@ -382,9 +383,9 @@ def _make_p_solver(ctx: LinearContext, cfg: PrecondConfig):
     def solve_pcd(rhs, tol):
         z = solve_lp(rhs)
         wv = ctx.ops.apply_Fp(ctx.disc, ctx.nu, ctx.inv_dt, ctx.linq, z)
-        dp, _ = cg(
+        dp, _ = cg_(
             lambda x: ctx.ops.apply_Mp_raw(ctx.disc, x),
-            wv, torch.zeros_like(wv), tol=rel * tnorm(wv),
+            wv, torch.zeros_like(wv), tol=rel * norm_(wv),
             maxiter=cfg.inner_maxiter, M=lambda r: dinv_raw * r,
         )
         return dp
@@ -410,11 +411,16 @@ def _fixed_F_solver(ctx: LinearContext, mf):
     return solve
 
 
-def _fixed_chebyshev(A, dinv, shape, ctx: LinearContext, degree: int):
+def _fixed_chebyshev(A, dinv, shape, ctx: LinearContext, degree: int, per_member: bool):
     """``degree`` Chebyshev-Jacobi sweeps from zero on [lmax/30, 1.1 lmax]
     -- a solver over the whole spectrum of a well-conditioned operator --
-    with ``lmax`` from five power iterations (the seeded start vector)."""
-    lmax = _estimate_lmax(A, dinv, shape, ctx.disc.dtype, ctx.disc.device, iters=5)
+    with ``lmax`` from five power iterations (the seeded start vector).
+    ``per_member``: ``A`` depends on the ensemble's member (the pressure
+    mass scales with 1/nu), so each member takes its own estimate, as under
+    the JAX package's ``vmap``; an operator the members share (Lp) takes
+    one."""
+    batch = ctx.nu.shape[0] if per_member and ctx.batched else None
+    lmax = _estimate_lmax(A, dinv, shape, ctx.disc.dtype, ctx.disc.device, iters=5, batch=batch)
     coeffs = _chebyshev_coeffs(lmax, degree, lmin_ratio=30.0)
     return lambda rhs: _chebyshev(A, dinv, coeffs, rhs)
 
@@ -427,7 +433,7 @@ def _fixed_Mp_solver(ctx: LinearContext):
         raw_inv = _dense_matvec(dense_mp)
         return lambda rhs: ctx.nu * raw_inv(rhs)
     dinv = 1.0 / ctx.ops.diag_Mp(ctx.disc, ctx.nu)
-    return _fixed_chebyshev(ctx.Mp, dinv, ctx.disc.NP, ctx, FIXED_MP_DEGREE)
+    return _fixed_chebyshev(ctx.Mp, dinv, ctx.disc.NP, ctx, FIXED_MP_DEGREE, per_member=True)
 
 
 def _fixed_p_solver(ctx: LinearContext, cfg: PrecondConfig):
@@ -445,7 +451,7 @@ def _fixed_p_solver(ctx: LinearContext, cfg: PrecondConfig):
         mlp = _lp_preconditioner(ctx)
     else:
         dinv_lp = 1.0 / ctx.ops.diag_Lp(ctx.disc)
-        mlp = _fixed_chebyshev(ctx.Lp, dinv_lp, ctx.disc.NP, ctx, FIXED_MP_DEGREE)
+        mlp = _fixed_chebyshev(ctx.Lp, dinv_lp, ctx.disc.NP, ctx, FIXED_MP_DEGREE, per_member=False)
     if mode == "cahouet":
         return lambda rhs: base(rhs) + ctx.inv_dt * mlp(rhs)
     dinv_raw = 1.0 / ctx.ops.diag_Mp(ctx.disc, 1.0)
@@ -469,15 +475,16 @@ def make_block_diagonal(ctx: LinearContext, cfg: PrecondConfig, variant: str):
     solve_p = _make_p_solver(ctx, cfg)
     unsteady = variant == "unsteady"
     tol_abs = as_dtype_scalar(1e-1, ctx.disc.dtype)
+    fgmres_, _, norm_ = ctx.krylov()
 
     def vmult(src: Blocks) -> Blocks:
         if unsteady:
             tol_u = tol_p = tol_abs
         else:
-            tol_u = 1e-1 * tnorm(src.u)
-            tol_p = 1e-1 * tnorm(src.p)
-        du, _ = fgmres(
-            ctx.F, src.u, ctx.disc.zeros_u(), tol=tol_u, maxiter=cfg.inner_maxiter, M=mf,
+            tol_u = 1e-1 * norm_(src.u)
+            tol_p = 1e-1 * norm_(src.p)
+        du, _ = fgmres_(
+            ctx.F, src.u, torch.zeros_like(src.u), tol=tol_u, maxiter=cfg.inner_maxiter, M=mf,
         )
         return Blocks(u=du, p=solve_p(src.p, tol_p))
 
@@ -546,7 +553,8 @@ def _solve_S(ctx: LinearContext, rhs, tol, M):
     if ctx.stokes:
         op = lambda p: -ctx.S(p)
         rhs = -rhs
-    dp, _ = fgmres(op, rhs, torch.zeros_like(rhs), tol=tol, maxiter=ASIMPLE_S_MAXITER, M=M)
+    fgmres_, _, _ = ctx.krylov()
+    dp, _ = fgmres_(op, rhs, torch.zeros_like(rhs), tol=tol, maxiter=ASIMPLE_S_MAXITER, M=M)
     return dp
 
 
@@ -561,25 +569,32 @@ def make_asimple(ctx: LinearContext, cfg: PrecondConfig, variant: str):
     Unsteady (NSSolver.hpp:293-350): smoother applications -- du = M_F(src_u);
     tmp_p = src_p + B du; dp = S-hat solve to ``ASIMPLE_S_REL``;
     du *= D; dp /= alpha; du -= B^T dp; du *= D^-1, with alpha
-    ``ASIMPLE_ALPHA``.
+    ``ASIMPLE_ALPHA``.  An ensemble's context runs it for its B members,
+    each S-hat solve to its own member's tolerance.
 
     Stationary (NSSolverStationary.hpp:282-311): inner FGMRES(F) (or the
     fixed cycles) and the S-hat solve to rel 1e-1 (the Stokes overrides
     apply in the Stokes regime, and ``asimple_stokes_schur="mass"`` swaps
     the Stokes-regime S-hat solve for the pressure-mass solve), then
-    dp *= alpha and u -= D^-1 B^T dp.
+    dp *= alpha and u -= D^-1 B^T dp.  No ensemble reaches it: it has no
+    batched form.
     """
+    if variant != "unsteady" and ctx.batched:
+        raise NotImplementedError(
+            "the stationary aSIMPLE has no batched form: an ensemble steps the unsteady variant"
+        )
     mf = ctx.smoother_F(cfg)
     D = ctx.diag_f
     Dinv = 1.0 / D
     ms = _lp_preconditioner(ctx)  # built once per linearization
 
     if variant == "unsteady":
+        norm_ = ctx.krylov()[2]
 
         def vmult(src: Blocks) -> Blocks:
             du = mf(src.u)
             tmp_p = src.p + ctx.B(du)
-            dp = _solve_S(ctx, tmp_p, ASIMPLE_S_REL * tnorm(tmp_p), M=ms)
+            dp = _solve_S(ctx, tmp_p, ASIMPLE_S_REL * norm_(tmp_p), M=ms)
             # the reference's four separate sweeps, in its order
             du = du * D
             dp = dp / ASIMPLE_ALPHA
@@ -767,24 +782,17 @@ def _cast_ctx(ctx: LinearContext, dtype: torch.dtype) -> LinearContext:
     )
 
 
-def check_batched(disc, kind: int, cfg: PrecondConfig | None, solver_type: int = 1) -> None:
+def check_batched(disc, cfg: PrecondConfig | None) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP A.D8b) for a
-    combination the ensemble cannot batch yet.  Batched: FGMRES (1) or GMRES
-    (0) + blockTriangular on the structured lattice, the GMRES-smoothed
-    V-cycle (or Jacobi without a chain), the Cahouet-Chabard Schur leg and
-    the nested inner solves, in any ``vmult_dtype``/``mg_dtype``."""
+    combination the ensemble cannot batch yet.  Batched: GMRES, FGMRES and
+    BiCGStab; blockDiagonal, blockTriangular and aSIMPLE (its unsteady
+    variant, the one a time step takes); the mass, Cahouet-Chabard and PCD
+    Schur legs; the nested and the fixed inner solves; the GMRES,
+    Chebyshev-Jacobi and Schwarz V-cycle smoothers (or Jacobi without a
+    chain) -- on the structured lattice, in any
+    ``vmult_dtype``/``mg_dtype``."""
     cfg = cfg or PrecondConfig()
     left_out = []
-    if solver_type not in (0, 1):
-        left_out.append("BiCGStab (solver_type 2)")
-    if kind != 1:
-        left_out.append(f"{PRECONDITIONER_NAMES.get(kind, kind)} (prec_type {kind})")
-    if cfg.schur_mode != "cahouet":
-        left_out.append(f"schur_mode={cfg.schur_mode!r}")
-    if cfg.mg_smoother != "gmres":
-        left_out.append(f"mg_smoother={cfg.mg_smoother!r}")
-    if cfg.inner_mode == "fixed":
-        left_out.append("inner_mode='fixed'")
     if cfg.krylov_cycle_dtype is not None:
         left_out.append("GMRES-IR cycles (krylov_cycle_dtype)")
     if cfg.direct_lu:
@@ -793,9 +801,8 @@ def check_batched(disc, kind: int, cfg: PrecondConfig | None, solver_type: int =
         left_out.append("the -M simplex backend")
     if left_out:
         raise NotImplementedError(
-            "the ensemble batches FGMRES/GMRES + blockTriangular with the "
-            "Cahouet-Chabard leg on the structured channel; not ported yet: "
-            + ", ".join(left_out) + " (ROADMAP.md A.D8b)"
+            "the ensemble batches every solver and block preconditioner on the "
+            "structured lattice; not ported yet: " + ", ".join(left_out) + " (ROADMAP.md A.D8b)"
         )
 
 

@@ -17,7 +17,9 @@ Both V-cycles also run an ensemble's B members at once (a [B] ``nu``,
 batched vectors): the hierarchy (geometry, transfers, the Lp cycle's
 spectral estimate) is shared, the per-level diagonals and linearizations
 are per member, the GMRES smoother solves one least-squares problem per
-member, and the coarse solves are the batched Krylov solvers.
+member, the Chebyshev smoothers take one spectral estimate per member
+and the Schwarz sweep one set of cell matrices per member, and the
+coarse solves are the batched Krylov solvers.
 """
 
 from __future__ import annotations
@@ -219,23 +221,41 @@ def _as_prec(prec):
     return prec if callable(prec) else (lambda r: prec * r)
 
 
-def _estimate_lmax(A, prec, shape, dtype: torch.dtype, device, iters: int = 8):
+def _estimate_lmax(A, prec, shape, dtype: torch.dtype, device, iters: int = 8, batch: int | None = None):
     """``iters`` power iterations for the spectral radius of ``P A``
     (``prec`` an inverse diagonal or a callable; matrix-free, no host
-    synchronization); a 0-dim tensor."""
+    synchronization); a 0-dim tensor.
+
+    ``batch``: the operator and ``prec`` act on B members ([B, *shape]);
+    every member starts from the same vector (the JAX package's ``vmap``
+    closes over one start vector) and gets its own estimate, a [B] tensor
+    broadcast against ``shape`` (``_member_scalar``)."""
     P = _as_prec(prec)
     v = _lmax_start(shape, dtype, device)
-    lam = torch.ones((), dtype=dtype, device=device)
+    if batch is None:
+        dot, scalar = tvdot, (lambda t: t)
+    else:
+        v = v.expand((batch,) + tuple(shape)).contiguous()
+        dot, scalar = bvdot, (lambda t: _member_scalar(t, len(shape)))
+    lam = scalar(torch.ones(() if batch is None else (batch,), dtype=dtype, device=device))
     for _ in range(iters):
         w = P(A(v))
-        lam = torch.sqrt(tvdot(w, w))
+        lam = scalar(torch.sqrt(dot(w, w)))
         v = w / torch.clamp_min(lam, 1e-30)
     return lam
 
 
+def _member_scalar(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Per-member scalars [B] -> [B, 1, ...] against a member's ``ndim``
+    dimensions: the Chebyshev coefficients built from it then broadcast over
+    the member axis, each member's arithmetic the unbatched one's."""
+    return v.reshape(v.shape[:1] + (1,) * ndim)
+
+
 def _chebyshev_coeffs(lmax, degree: int, lmin_ratio: float = 4.0):
     """The scalars of ``degree`` >= 1 Chebyshev steps on
-    [lmax/lmin_ratio, 1.1 lmax] (``lmax`` a 0-dim tensor).  ``lmin_ratio``
+    [lmax/lmin_ratio, 1.1 lmax] (``lmax`` a 0-dim tensor, or an ensemble's
+    per-member estimates from ``_estimate_lmax(batch=B)``).  ``lmin_ratio``
     4 is the classic smoothing window -- only the high end of the spectrum
     must be damped; larger ratios approach a solver over the whole
     spectrum of a well-conditioned operator (the pressure mass).  Built
@@ -304,16 +324,13 @@ def make_mg_vcycle(
     finest level, and reuse it below.
 
     A [B] ``nu`` (an ensemble) builds one cycle for the B members: state
-    [B, 2, NY, NX], per-member diagonals, the batched GMRES smoother and
-    batched coarse solves.  Only the GMRES smoother has a batched form.
+    [B, 2, NY, NX], per-member diagonals, the batched GMRES smoother, a
+    [B] spectral estimate for the Chebyshev smoothers, per-member Schwarz
+    cell matrices, and batched coarse solves.
     """
     if smoother not in SMOOTHERS:
         raise ValueError(f"unknown mg_smoother {smoother!r}; one of {SMOOTHERS}")
     batched = is_batched(nu)
-    if batched and smoother != "gmres":
-        raise NotImplementedError(
-            f"the batched V-cycle has only the GMRES smoother, not {smoother!r} (ROADMAP.md A.D8b)"
-        )
     out_dtype = disc.dtype
     if dtype is not None and dtype != disc.dtype:
         disc = disc.to(dtype)
@@ -343,7 +360,8 @@ def make_mg_vcycle(
         else:
             prec = 1.0 / diag
         if cheb is None and smoother != "gmres":
-            lmax = _estimate_lmax(A, prec, (2,) + d.NV, d.dtype, d.device)
+            lmax = _estimate_lmax(A, prec, (2,) + d.NV, d.dtype, d.device,
+                                  batch=nu.shape[0] if batched else None)
             cheb = _chebyshev_coeffs(lmax, smooth_degree)
         levels.append((d, A, prec, d.mg))
         if d.mg is None:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from navier_stokes_solver_tpu_torch.ops.blocks import per_member
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
 from navier_stokes_solver_tpu_torch.ops.lattice import _gather_v, _scatter_v
 from navier_stokes_solver_tpu_torch.ops.matfree import LinearizationQ
@@ -26,22 +27,32 @@ __all__ = ["make_schwarz_smoother"]
 
 
 def _cell_major(disc: Disc, loc: torch.Tensor) -> torch.Tensor:
-    """Cell-local velocity DoFs [n_v, 2, ny, nx] -> [ny, nx, 2 n_v], index
-    c * n_v + m (component-major)."""
-    return loc.permute(2, 3, 1, 0).reshape(disc.ny, disc.nx, -1)
+    """Cell-local velocity DoFs [n_v, (B,) 2, ny, nx] -> [(B,) ny, nx,
+    2 n_v], index c * n_v + m (component-major)."""
+    n = loc.dim()
+    lead = tuple(range(1, n - 3))
+    return loc.permute(lead + (n - 2, n - 1, n - 3, 0)).reshape(loc.shape[1 : n - 3] + (disc.ny, disc.nx, -1))
+
+
+def _local_major(dv: torch.Tensor, n_v: int) -> torch.Tensor:
+    """``_cell_major``'s inverse: [(B,) ny, nx, 2 n_v] -> [n_v, (B,) 2, ny, nx]."""
+    d = dv.reshape(dv.shape[:-1] + (2, n_v))
+    m = d.dim()
+    return d.permute((m - 1,) + tuple(range(m - 4)) + (m - 2, m - 4, m - 3))
 
 
 def _field_block(w, a, b, f) -> torch.Tensor:
-    """sum_q w_q a[q, m] b[q, n] f[q, y, x] -> [ny, nx, m, n], one matmul."""
+    """sum_q w_q a[q, m] b[q, n] f[q, ...] -> [..., m, n], one matmul."""
     n_q, n_v = a.shape
     k = (w[:, None, None] * a[:, :, None] * b[:, None, :]).reshape(n_q, n_v * n_v)
-    return (f.reshape(n_q, -1).T @ k).reshape(f.shape[1], f.shape[2], n_v, n_v)
+    return (f.reshape(n_q, -1).T @ k).reshape(f.shape[1:] + (n_v, n_v))
 
 
 def _cell_matrices(
     disc: Disc, nu, inv_dt, linq: LinearizationQ | None, *, stokes: bool
 ) -> torch.Tensor:
-    """Batched local velocity-block matrices [ny, nx, 2 n_v, 2 n_v].
+    """Batched local velocity-block matrices [(B,) ny, nx, 2 n_v, 2 n_v]
+    (a leading member axis for an ensemble's [B] ``nu``).
 
     Row/column index = c * n_v + m (component-major), matching the weak
     form of ``apply_F``: viscous nu (grad phi_n, grad phi_m), implicit-Euler
@@ -56,16 +67,18 @@ def _cell_matrices(
 
     # cell-independent: viscous + mass  [m, n]
     visc = torch.einsum("q,qm,qn->mn", w, dx, dx) + torch.einsum("q,qm,qn->mn", w, dy, dy)
-    base = nu * visc
+    base = per_member(nu, 3, 0) * visc  # [(B,) m, n]
     if not stokes:
         base = base + inv_dt * torch.einsum("q,qm,qn->mn", w, phi, phi)
-    diag_blk = base.expand(ny, nx, n_v, n_v)
+    lead = base.shape[:-2]
+    diag_blk = base[..., None, None, :, :].expand(lead + (ny, nx, n_v, n_v))
 
     if not stokes and linq is not None:
         # (u_k . grad phi_n) phi_m  -- component-diagonal
-        conv1 = _field_block(w, phi, dx, linq.u[:, 0]) + _field_block(w, phi, dy, linq.u[:, 1])
+        u = lambda c: linq.u[..., c, :, :]
+        conv1 = _field_block(w, phi, dx, u(0)) + _field_block(w, phi, dy, u(1))
         # phi_n (grad u_k)_{c,c'} phi_m  -- couples components
-        g = lambda c, cp: _field_block(w, phi, phi, linq.gradu[:, c, cp])
+        g = lambda c, cp: _field_block(w, phi, phi, linq.gradu[..., c, cp, :, :])
         a00 = diag_blk + conv1 + g(0, 0)
         a01 = g(0, 1)
         a10 = g(1, 0)
@@ -101,7 +114,9 @@ def make_schwarz_smoother(
     """Build ``prec(r) -> d``: one weighted additive-Schwarz sweep.
 
     ``global_diag``: assembled diagonal of the velocity block (used to
-    smooth constrained rows exactly).
+    smooth constrained rows exactly).  With an ensemble's [B] ``nu`` (and
+    its linearization, diagonal and vectors [B, 2, NY, NX]) every member
+    gets its own cell matrices, all B x ny x nx inverted in one call.
     """
     A = _cell_matrices(disc, nu, inv_dt, linq, stokes=stokes)
     # One cell's own contribution to a shared node's diagonal misses the
@@ -124,8 +139,7 @@ def make_schwarz_smoother(
     def prec(r):
         rv = _cell_major(disc, _gather_v(disc, r))
         dv = torch.matmul(A_inv, rv[..., None])[..., 0]
-        d_loc = dv.reshape(disc.ny, disc.nx, 2, n_v).permute(3, 2, 0, 1)
-        d = _scatter_v(disc, d_loc) * wmult
+        d = _scatter_v(disc, _local_major(dv, n_v)) * wmult
         # constrained rows: exact (Jacobi) solve with the global diagonal
         return torch.where(constrained, dinv * r, d)
 

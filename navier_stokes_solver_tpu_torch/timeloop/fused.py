@@ -174,7 +174,7 @@ def make_batched_time_step(
     The inlet lift applies at step 0, which all members share.  The
     combinations that batch: ``precond.blocks.check_batched``, checked
     here, once."""
-    check_batched(disc, prec_type, precond_cfg, solver_type)
+    check_batched(disc, precond_cfg)
     return _make_step(
         disc, True, solver_type=solver_type, prec_type=prec_type, tol=tol, newton_max=newton_max,
         newton_tol=newton_tol, krylov_maxiter=krylov_maxiter, inlet_amp=inlet_amp, basis=basis,

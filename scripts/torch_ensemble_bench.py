@@ -53,8 +53,7 @@ def main(argv=None):
     ap.add_argument("--re-min", type=float, default=20.0)
     ap.add_argument("--re-max", type=float, default=100.0)
     ap.add_argument("--schur", default="cahouet", choices=("mass", "cahouet", "pcd"),
-                    help="Schur treatment (the ensemble batches cahouet only: "
-                    "the others raise, ROADMAP.md A.D8b)")
+                    help="Schur treatment of blockTriangular's pressure leg")
     ap.add_argument("--control", action="store_true",
                     help="also time a B=1 run for the batching-overhead ratio")
     ap.add_argument("--cpu", action="store_true", help="the same as --device cpu")
