@@ -5,14 +5,15 @@
 
 Phases (each raises on failure; none catches another's).  They run in this
 order, except that phases 21 and 24 run right after phase 4, phase 19 right
-after phase 10 (on its solver), phases 23, 25 and 26 after phase 19, and
-phases 8, 12, 13, 14, 18, 22, 29, 27 and 30 together after phase 26: the
-CPU sides of the card-vs-CPU phases (8, 12, 14, 18, 22, 29, 27) run in
-three spawned worker processes meanwhile (18's, 22's, 29's and 27's when a
-worker is free), and phase 30's combinations in two more, on the card;
+after phase 10 (on its solver), phases 23, 32, 25 and 26 after phase 19, and
+phases 8, 12, 13, 14, 27, 18, 22, 29, 31 and 30 together after phase 26:
+the CPU sides of the card-vs-CPU phases (8, 12, 14, 18, 22, 29, 27, 31) run
+in three spawned worker processes meanwhile (18's, 22's, 29's, 27's and
+31's when a worker is free), and phase 30's combinations in two more, on
+the card, followed there by the card sides of phases 18, 22, 29 and 31;
 all are joined before phase 15 -- so the timed paths before and after
-them have the host to themselves; phase 20 runs after phase 16, and phase
-28 after phase 17:
+them have the host to themselves; phases 20 and 33 run after phase 16,
+and phase 28 after phase 17:
 
   1. device   -- require CUDA; print the card (nvidia-smi name and power
                 limit) and the torch / CUDA versions;
@@ -240,16 +241,50 @@ them have the host to themselves; phase 20 runs after phase 16, and phase
                 Gates: finite drag and lift for every member, each member's
                 residual at or below 1e-9 or the member at the Newton cap or
                 stopped by the step's stagnation break (both listed), both
-                kernels launched in each combination;
- 31. report   -- one JSON line of per-kernel results (launches from phase
-                30, summed over its combinations, and times at its finest
-                level, 60x40 Q2/Q1 B = 64 Stokes, with every path's
-                launches -- the fused 300x100 path's, the ensemble's, the
-                cavity's and the ensemble matrix's among them, 0 on the
-                simplex paths, which run no hand-written kernel -- and every
-                shape's times beside them, the batched launches' included),
-                the nvidia-smi line, then the final ``{"ok": true,
-                "device": ...}`` line.
+                kernels launched in each combination; (a) runs
+                ``ENSEMBLE_MATRIX_A_STEPS`` (one) step, a depth cut;
+ 31. ensemble-rest-check -- phase 22 for every case of
+                ``ENSEMBLE_REST_CHECK``, all-f64 discs, two steps from rest,
+                B = 3: (i) 16x8 Q2/Q1, Re 20/60/100, f32 GMRES-IR cycles,
+                Cahouet-Chabard, whole tangent solves (cap 200), the
+                consistent sign; (ii) the same members with the direct LU,
+                capped at 20; (iii) ``-M`` 24x10, Re 1/50/100, iterative
+                Schur legs, the consistent sign, capped at 40; (iv) the same
+                with the direct LU.  The same gates, but (i)'s Krylov totals
+                within the step's Newton count (f32 cycles end on an f32
+                Givens estimate); the simplex drags must not be zero.  The
+                CPU side runs in a worker process;
+ 32. ensemble-ir -- phase 23's configuration (BASELINE config 5, B = 64,
+                a warm-up and ``ENSEMBLE_STEPS`` (two) timed steps) with
+                ``krylov_cycle_dtype="float32"``: step walls,
+                member-steps/s, outers and restart cycles per step (the
+                slowest member), the members at the Newton cap or stopped by
+                the stagnation break (listed), launches of both kernels
+                (counts zeroed just before the warm-up, read after the last
+                step), then phase 7's profile of the batched tangent solve
+                beside phase 23's.  Gates: finite drag and lift for every
+                member, each member at or below 1e-9 or listed, both kernels
+                launched;
+ 33. ensemble-simplex-lu -- config 3 with ``--direct-lu`` as a Reynolds
+                sweep, built from phase 20's solver (its disc with the dense
+                Schur legs, its ``precond_config``, the step keywords of its
+                ``solve_fused``): ``ENSEMBLE_SIMPLEX_B`` (16) members, Re
+                linspace(1, 100), ``ENSEMBLE_SIMPLEX_STEPS`` (three) steps:
+                per-step walls, factorizations (count, build and factor
+                seconds), peak device memory, Newton iterations and outers
+                per member.  Gates: member 0 (Re 1, config 3 itself) within
+                rtol 1e-7 of phase 20's first three drags with equal Newton
+                counts; one factorization per member tangent solve; finite
+                forces; no hand-written kernel launched (B is 16, not 64: 64
+                f32 factors of 1.94 GB each do not fit in 80 GB);
+ 34. report   -- one JSON line of per-kernel results (launches from phase
+                32 and times at its finest level, 60x40 Q2/Q1 B = 64 Stokes,
+                with every path's launches -- the fused 300x100 path's, the
+                ensemble's, the cavity's and the ensemble matrix's among
+                them, 0 on the simplex paths, which run no hand-written
+                kernel, phase 33's included -- and every shape's times
+                beside them, the batched launches' included), the nvidia-smi
+                line, then the final ``{"ok": true, "device": ...}`` line.
 
 If the script outgrows its time budget, depth is cut, in this order: the
 stationary bench solve to one run (``SOLVES``), then the unsteady run to
@@ -261,10 +296,12 @@ one step (``FUSED_MAIN_STEPS``; its checkpoint resume is still the one
 from phase 9's state, and fused-check keeps its own round trip; taken for
 phases 29-30, whose combinations took 477 s on the card one after the
 other in this process, and now run in two worker processes beside the
-card-vs-CPU phases) -- never a
+card-vs-CPU phases) -- then ensemble-matrix (a) to one step
+(``ENSEMBLE_MATRIX_A_STEPS``; its 200-iteration-capped solves set the
+pooled block's wall, 245 / 189 s per step; taken for phases 31-33) -- never a
 mesh, config3's three steps, the simplex check, the fused check, the
 unsteady check's second step, the ensemble's B = 64 or its two timed
-steps, nor a kernel check's shape.  If the cavity phases ever need room,
+steps (ensemble-ir's included), nor a kernel check's shape.  If the cavity phases ever need room,
 cavity-ghia goes to 64x64 (Ghia's own 129^2 velocity grid).  The cuts are
 printed.
 
@@ -441,9 +478,36 @@ ENSEMBLE_MATRIX = [
      dict(schur_mode="cahouet", cc_lp_cycles=1, mg_smoother="schwarz"), 20),
 ]
 ENSEMBLE_MATRIX_STEPS = 2  # from rest: the first lifts the inlet
+# (a)'s steps: the sixth depth cut, from 2 (room for phases 31-33); its
+# tangent solves all run to the 200-iteration cap
+ENSEMBLE_MATRIX_A_STEPS = 1
 # ensemble-matrix's worker processes on the card: (a), whose f32 tangent solves
 # run to the 200-iteration cap, takes as long as the other five together
 ENSEMBLE_MATRIX_WORKERS = 2
+# ensemble-rest-check: the ensemble's GMRES-IR cycles, direct LU and -M
+# simplex disc on the card against the CPU, all-f64 discs, two steps from
+# rest, newton_max 3, FGMRES + blockTriangular: (label, backend, PrecondConfig
+# fields, Reynolds numbers, Krylov cap, consistent continuity sign).  (i)
+# runs its tangent solves whole, with the consistent sign: f32 cycles part
+# two roundings early (capped at 20, the JAX package and the port end 2e-6
+# apart in drag, tests/test_torch_ensemble_rest.py), and a solve that ends
+# on the f32 Givens estimate may end an iteration apart, so its Krylov
+# totals are held within the step's Newton count
+ENSEMBLE_REST_CHECK = [
+    ("i 16x8 Q2/Q1, f32 GMRES-IR cycles, Cahouet-Chabard, consistent sign", "structured",
+     dict(schur_mode="cahouet", cc_lp_cycles=1, krylov_cycle_dtype="float32"), ENSEMBLE_CHECK_RE, 200, True),
+    ("ii 16x8 Q2/Q1, direct LU", "structured", dict(schur_mode="cahouet", cc_lp_cycles=1, direct_lu=True),
+     ENSEMBLE_CHECK_RE, 20, False),
+    ("iii -M 24x10, iterative Schur legs, consistent sign", "simplex", {}, (1.0, 50.0, 100.0), 40, True),
+    ("iv -M 24x10, direct LU, consistent sign", "simplex", dict(direct_lu=True), (1.0, 50.0, 100.0), 40, True),
+]
+# ensemble-simplex-lu: config 3 (-M 60x40, the consistent sign) with the
+# direct LU as a Reynolds sweep from the 800-step record's Re 1 to BASELINE
+# config 3's Re 100, built from config3-lu-fused's solver; B 16, not 64
+# (reduced): 64 f32 factors of 1.94 GB each do not fit the card's 80 GB
+ENSEMBLE_SIMPLEX_B = 16
+ENSEMBLE_SIMPLEX_RE = (1.0, 100.0)
+ENSEMBLE_SIMPLEX_STEPS = 3  # config 3's T = 0.03
 # the lid-driven cavity (geometry/cavity.py): Ghia, Ghia & Shin, J. Comput.
 # Phys. 48 (1982), Re 100, at 128x128 Q2/Q1 (148,739 DoFs; twice Ghia's 129^2
 # grid in each direction) through solve_direct with the options of
@@ -1436,8 +1500,9 @@ def simplex_tangent_run(device, dense, n):
 
 def cpu_job(name):
     """The CPU side of one card-vs-CPU phase -- "unsteady-check", "matrix",
-    "simplex-check", "fused-check", "ensemble-check", "ensemble-matrix-check"
-    or "cavity-check" -- as plain data, for a worker process."""
+    "simplex-check", "fused-check", "ensemble-check", "ensemble-matrix-check",
+    "cavity-check" or "ensemble-rest-check" -- as plain data, for a worker
+    process."""
     import torch
 
     torch.set_num_threads(CPU_SIDE_THREADS)
@@ -1459,12 +1524,39 @@ def cpu_job(name):
         return ensemble_matrix_check_run(cpu)
     if name == "cavity-check":
         return cavity_check_run(cpu)
+    if name == "ensemble-rest-check":
+        return ensemble_rest_check_run(cpu)
     raise ValueError(f"no CPU side named {name!r}")
 
 
+# the card-vs-CPU phases whose card sides run in ensemble-matrix's worker
+# processes on the card, after its combinations (``card_job``)
+CARD_SIDES = ("fused-check", "ensemble-check", "ensemble-matrix-check", "ensemble-rest-check")
+
+
+def card_job(name):
+    """The card side of one card-vs-CPU phase of ``CARD_SIDES``, as plain
+    data, for a worker process on the card (one torch thread: a host-bound
+    launch loop)."""
+    import torch
+
+    torch.set_num_threads(1)
+    device = torch.device("cuda")
+    if name == "fused-check":
+        return fused_check_card(device)
+    if name == "ensemble-check":
+        return ensemble_check_run(device)
+    if name == "ensemble-matrix-check":
+        return ensemble_matrix_check_run(device)
+    if name == "ensemble-rest-check":
+        return ensemble_rest_check_run(device)
+    raise ValueError(f"no card side named {name!r}")
+
+
 def cpu_pool(workers):
-    """Spawned worker processes for ``cpu_job`` and ``ensemble_matrix_run``
-    (joined when the ``with`` block that holds the pool ends)."""
+    """Spawned worker processes for ``cpu_job``, ``card_job`` and
+    ``ensemble_matrix_run`` (joined when the ``with`` block that holds the
+    pool ends)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1640,30 +1732,40 @@ def fused_run(device, fields, kw, checkpoint_dir=None, max_steps=None):
             "steps_done": s.time_step_index}
 
 
-def phase_fused_check(device, cpu_side=None):
-    """``FUSED_CHECK`` on the card against the same on the CPU (``cpu_side``:
-    the future of ``cpu_job("fused-check")``; by default one worker process
-    started here): Newton and Krylov counts per step within 1, drag and
-    lift per step rtol 1e-7 (the lift floored at 1e-7 of the drag), fields
-    1e-6 of their magnitude.  Then a save -> load -> resume round trip on
-    the card: the first case split after step 1 through a checkpoint
-    directory equals its unsplit run bit for bit."""
+def fused_check_card(device):
+    """The card side of fused-check, as plain data: every ``FUSED_CHECK``
+    run, then the first case split after step 1 through a checkpoint
+    directory (``first``, ``split``), and the wall."""
     import tempfile
 
-    import numpy as np
-
-    if cpu_side is None:
-        with cpu_pool(1) as pool:
-            return phase_fused_check(device, pool.submit(cpu_job, "fused-check"))
-    t_all = time.perf_counter()
+    t0 = time.perf_counter()
     card = [fused_run(device, fields, kw) for _, fields, kw in FUSED_CHECK]
     _, fields, kw = FUSED_CHECK[0]
     with tempfile.TemporaryDirectory() as ck:
         first = fused_run(device, fields, kw, checkpoint_dir=ck, max_steps=1)
         split = fused_run(device, fields, kw, checkpoint_dir=ck)
-    t_card = time.perf_counter() - t_all
+    return {"card": card, "first": first, "split": split, "wall_s": time.perf_counter() - t0}
+
+
+def phase_fused_check(device, cpu_side=None, card_side=None):
+    """``FUSED_CHECK`` on the card against the same on the CPU (``cpu_side``:
+    the future of ``cpu_job("fused-check")``; by default one worker process
+    started here; ``card_side``: the future of ``card_job("fused-check")``,
+    by default run here): Newton and Krylov counts per step within 1, drag
+    and lift per step rtol 1e-7 (the lift floored at 1e-7 of the drag),
+    fields 1e-6 of their magnitude.  Then a save -> load -> resume round
+    trip on the card: the first case split after step 1 through a
+    checkpoint directory equals its unsplit run bit for bit."""
+    import numpy as np
+
+    if cpu_side is None:
+        with cpu_pool(1) as pool:
+            return phase_fused_check(device, pool.submit(cpu_job, "fused-check"), card_side)
+    t_all = time.perf_counter()
+    got = fused_check_card(device) if card_side is None else card_side.result()
+    card, first, split = got["card"], got["first"], got["split"]
     cpu = cpu_side.result()
-    print(f"[fused-check] card side {t_card:.1f} s; waited {time.perf_counter() - t_all - t_card:.1f} s more for the CPU side")
+    print(f"[fused-check] card side {got['wall_s']:.1f} s; waited {time.perf_counter() - t_all:.1f} s here for both sides")
     key = ("newton_iters", "krylov_iters")
     for (name, _, _), g, c in zip(FUSED_CHECK, card, cpu):
         counts = [(tuple(hg[k] for k in key), tuple(hc[k] for k in key)) for hg, hc in zip(g["history"], c["history"])]
@@ -1692,7 +1794,7 @@ def phase_fused_check(device, cpu_side=None):
     print(f"[fused-check] round trip on the card ({FUSED_CHECK[0][0]}): step 1 to a checkpoint directory, resumed to step {split['steps_done']} in a fresh solve_fused: bit-identical to the unsplit run {same}")
     if not same:
         raise RuntimeError("fused-check: the checkpointed split run differs from the unsplit run")
-    print(f"[fused-check] {len(FUSED_CHECK)} cases and the round trip in {time.perf_counter() - t_all:.1f} s")
+    print(f"[fused-check] {len(FUSED_CHECK)} cases and the round trip in {got['wall_s']:.1f} s on the card")
 
 
 def phase_fused_main(su):
@@ -1974,32 +2076,37 @@ def ensemble_matrix_check_run(device):
     return [ensemble_check_run(device, opts, fields, cap) for _, opts, fields, cap in ENSEMBLE_MATRIX]
 
 
-def phase_ensemble_check(device, cpu_side=None):
+def phase_ensemble_check(device, cpu_side=None, card_side=None):
     """A small ensemble on the card against the same on the CPU
     (``cpu_side``: the future of ``cpu_job("ensemble-check")``; by default
-    one worker process started here): ``compare_ensemble_runs``."""
+    one worker process started here; ``card_side``: the future of
+    ``card_job("ensemble-check")``, by default run here):
+    ``compare_ensemble_runs``."""
     if cpu_side is None:
         with cpu_pool(1) as pool:
-            return phase_ensemble_check(device, pool.submit(cpu_job, "ensemble-check"))
+            return phase_ensemble_check(device, pool.submit(cpu_job, "ensemble-check"), card_side)
     mx, my = ENSEMBLE_CHECK_MESH
     where = f"{mx}x{my} Q2/Q1, Re {list(ENSEMBLE_CHECK_RE)}, {ENSEMBLE_CHECK_STEPS} steps"
-    compare_ensemble_runs("ensemble-check", where, ensemble_check_run(device), cpu_side.result())
+    g = ensemble_check_run(device) if card_side is None else card_side.result()
+    compare_ensemble_runs("ensemble-check", where, g, cpu_side.result())
 
 
-def compare_ensemble_runs(tag, where, g, c):
+def compare_ensemble_runs(tag, where, g, c, krylov_per_newton=False):
     """An ensemble run on the card (``g``) against the same on the CPU
     (``c``), as ``ensemble_check_run`` returns them: per step and member the
-    Newton and Krylov counts within 1, drag and lift rtol 1e-7 (the lift
-    floored at 1e-7 of the drag), each member's fields within 1e-6 of its
-    magnitude."""
+    Newton and Krylov counts within 1 (``krylov_per_newton``: the Krylov
+    totals within the step's Newton count, one per tangent solve), drag and
+    lift rtol 1e-7 (the lift floored at 1e-7 of the drag), each member's
+    fields within 1e-6 of its magnitude."""
     import numpy as np
 
     print(f"[{tag}] {where}: walls card {g['wall_s']:.2f} s, CPU {c['wall_s']:.2f} s")
     for k in ("newton_iters", "krylov_iters"):
         a, b = g["hist"][k], c["hist"][k]
+        slack = np.maximum(1, c["hist"]["newton_iters"]) if k == "krylov_iters" and krylov_per_newton else 1
         print(f"[{tag}] {k} per step and member: card {a.tolist()}, CPU {b.tolist()}")
-        if a.shape != b.shape or np.abs(a.astype(int) - b.astype(int)).max() > 1:
-            raise RuntimeError(f"{tag}: {where}: {k} differ by more than 1")
+        if a.shape != b.shape or np.any(np.abs(a.astype(int) - b.astype(int)) > slack):
+            raise RuntimeError(f"{tag}: {where}: {k} differ by more than {'the Newton count' if np.ndim(slack) else 1}")
     dg, dc, lg, lc = g["hist"]["drag"], c["hist"]["drag"], g["hist"]["lift"], c["hist"]["lift"]
     rel = np.abs(dg - dc) / np.where(dc == 0.0, 1.0, np.abs(dc))  # (b) stops at rest: drag 0
     print(f"[{tag}] drag card {dg.tolist()} CPU {dc.tolist()}; max rel diff {float(rel.max()):.3e}; lift max |diff| {float(np.abs(lg - lc).max()):.3e}")
@@ -2131,17 +2238,19 @@ def phase_ensemble_main(device):
 # ---------------------------------------------------------------------------
 
 
-def phase_ensemble_matrix_check(device, cpu_side=None):
+def phase_ensemble_matrix_check(device, cpu_side=None, card_side=None):
     """Every combination of ``ENSEMBLE_MATRIX`` as a small ensemble on the
     card against the same on the CPU (``cpu_side``: the future of
     ``cpu_job("ensemble-matrix-check")``; by default one worker process
-    started here): ``compare_ensemble_runs`` for each."""
+    started here; ``card_side``: the future of
+    ``card_job("ensemble-matrix-check")``, by default run here):
+    ``compare_ensemble_runs`` for each."""
     if cpu_side is None:
         with cpu_pool(1) as pool:
-            return phase_ensemble_matrix_check(device, pool.submit(cpu_job, "ensemble-matrix-check"))
+            return phase_ensemble_matrix_check(device, pool.submit(cpu_job, "ensemble-matrix-check"), card_side)
     mx, my = ENSEMBLE_CHECK_MESH
-    for (label, _, _, cap), g, c in zip(ENSEMBLE_MATRIX, ensemble_matrix_check_run(device), cpu_side.result(),
-                                         strict=True):
+    card = ensemble_matrix_check_run(device) if card_side is None else card_side.result()
+    for (label, _, _, cap), g, c in zip(ENSEMBLE_MATRIX, card, cpu_side.result(), strict=True):
         where = (f"({label}) {mx}x{my} Q2/Q1, Re {list(ENSEMBLE_CHECK_RE)}, {ENSEMBLE_CHECK_STEPS} steps, "
                  f"tangent solves capped at {cap}")
         compare_ensemble_runs("ensemble-matrix-check", where, g, c)
@@ -2176,7 +2285,7 @@ def ensemble_matrix_run(index):
     Q2/Q1, B = 64, Re 20..100, dt 0.01, tol 1e-9, ``newton_max`` 3,
     ``krylov_maxiter`` 200, f32 preconditioner, the reference's sign) on the
     card, as plain data, for a worker process: ``ENSEMBLE_MATRIX_STEPS``
-    steps from rest through ``ensemble.make_ensemble_step``, the kernel
+    steps (``ENSEMBLE_MATRIX_A_STEPS`` for (a)) from rest through ``ensemble.make_ensemble_step``, the kernel
     counts zeroed just before the first step and read just after the last.
     Per step: wall, member-steps/s, each member's Newton count, Krylov total
     and final residual, drag and lift, the members BiCGStab marked failed
@@ -2201,7 +2310,7 @@ def ensemble_matrix_run(index):
     steps = []
     try:
         reset_counts()
-        for _ in range(ENSEMBLE_MATRIX_STEPS):
+        for _ in range(ENSEMBLE_MATRIX_A_STEPS if index == 0 else ENSEMBLE_MATRIX_STEPS):
             del calls[:]
             t0 = time.perf_counter()
             ts = step(ts, nus, dt)
@@ -2278,6 +2387,256 @@ def phase_ensemble_matrix(device, runs=None):
                 raise RuntimeError(f"ensemble-matrix: ({label}) never launched {name}")
         out[label] = run
     return out
+
+
+# ---------------------------------------------------------------------------
+# 31. ensemble-rest-check, 32. ensemble-ir, 33. ensemble-simplex-lu
+# ---------------------------------------------------------------------------
+
+
+def simplex_ensemble_disc(device, mesh, dtype):
+    """The ``-M`` disc of the triangulated channel at ``mesh`` with the
+    p-multigrid (no dense Schur legs: the ensemble-rest-check's iterative
+    legs; the direct LU replaces the block preconditioner)."""
+    from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry
+    from navier_stokes_solver_tpu_torch.unstructured import make_simplex_disc, triangulate_channel
+
+    disc = make_simplex_disc(*triangulate_channel(make_channel_geometry(*mesh)), dtype=dtype, device=device)
+    return disc.replace(p_mg=True)
+
+
+def ensemble_rest_check_run(device):
+    """Every case of ``ENSEMBLE_REST_CHECK`` on one device, as plain data
+    (``ensemble_check_run``'s): per-step history [T, B], host fields, wall."""
+    import torch
+
+    from navier_stokes_solver_tpu_torch.ensemble import run_sweep
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    out = []
+    for _, backend, fields, res, cap, consistent in ENSEMBLE_REST_CHECK:
+        if backend == "structured":
+            disc = ensemble_disc(device, ENSEMBLE_CHECK_MESH, torch.float64)
+        else:
+            disc = simplex_ensemble_disc(device, SIMPLEX_CHECK_MESH, torch.float64)
+        cfg = PrecondConfig(**fields, vmult_dtype=None, mg_dtype=None)
+        t0 = time.perf_counter()
+        final, hist = run_sweep(disc, [1.0 / re for re in res], UNSTEADY_DT, ENSEMBLE_CHECK_STEPS, solver_type=1,
+                                prec_type=1, tol=1e-9, newton_max=3, krylov_maxiter=cap, precond_cfg=cfg,
+                                consistent=consistent)
+        out.append({"hist": {k: v.cpu().numpy() for k, v in hist.items()},
+                    "fields": tuple(t.cpu().numpy() for t in final.solution),
+                    "wall_s": time.perf_counter() - t0})
+    return out
+
+
+def phase_ensemble_rest_check(device, cpu_side=None, card_side=None):
+    """Every case of ``ENSEMBLE_REST_CHECK`` on the card against the same on
+    the CPU (``cpu_side``: the future of ``cpu_job("ensemble-rest-check")``;
+    by default one worker process started here; ``card_side``: the future
+    of ``card_job("ensemble-rest-check")``, by default run here):
+    ``compare_ensemble_runs`` for each, the f32 GMRES-IR case's Krylov
+    totals within the step's Newton count; the simplex cases' drag must not
+    be zero (at 12x6 it is, for every member)."""
+    import numpy as np
+
+    if cpu_side is None:
+        with cpu_pool(1) as pool:
+            return phase_ensemble_rest_check(device, pool.submit(cpu_job, "ensemble-rest-check"), card_side)
+    card = ensemble_rest_check_run(device) if card_side is None else card_side.result()
+    for (label, backend, fields, res, cap, consistent), g, c in zip(
+            ENSEMBLE_REST_CHECK, card, cpu_side.result(), strict=True):
+        mx, my = ENSEMBLE_CHECK_MESH if backend == "structured" else SIMPLEX_CHECK_MESH
+        where = (f"({label}) {'-M ' if backend == 'simplex' else ''}{mx}x{my}, Re {list(res)}, "
+                 f"{ENSEMBLE_CHECK_STEPS} steps, tangent solves capped at {cap}")
+        compare_ensemble_runs("ensemble-rest-check", where, g, c,
+                              krylov_per_newton=fields.get("krylov_cycle_dtype") is not None)
+        if not np.all(np.abs(g["hist"]["drag"]) > 0.0):
+            raise RuntimeError(f"ensemble-rest-check: {where}: a member's drag is zero")
+
+
+def watch_ir_cycles():
+    """Wrap ``krylov.batched``'s GMRES-IR loop: returns the list it appends
+    to, per batched GMRES-IR solve, each member's restart cycles (a [B]
+    array; the nested solves' cycles are not counted), and the function that
+    restores the originals."""
+    import numpy as np
+
+    from navier_stokes_solver_tpu_torch.krylov import batched
+
+    cycles, outer = [], []
+    ir, cycle = batched._gmres_ir, batched._arnoldi_cycle
+
+    def watched_ir(matvec, b, x0, tol_h, maxiter, basis, flexible, act, lo):
+        outer.append(lo.matvec)
+        cycles.append(np.zeros(act.shape[0], np.int64))
+        try:
+            return ir(matvec, b, x0, tol_h, maxiter, basis, flexible, act, lo)
+        finally:
+            outer.pop()
+
+    def watched_cycle(r, beta, beta_w, tol_w, iters, maxiter, basis, flexible, matvec, M, run0):
+        if outer and matvec is outer[-1]:
+            cycles[-1] += run0
+        return cycle(r, beta, beta_w, tol_w, iters, maxiter, basis, flexible, matvec, M, run0)
+
+    batched._gmres_ir, batched._arnoldi_cycle = watched_ir, watched_cycle
+
+    def restore():
+        batched._gmres_ir, batched._arnoldi_cycle = ir, cycle
+
+    return cycles, restore
+
+
+def phase_ensemble_ir(device, main):
+    """BASELINE config 5 exactly as ensemble-main runs it (``main``: its
+    result, whose per-outer profile is set beside this one's), with f32
+    GMRES-IR restart cycles (``krylov_cycle_dtype="float32"``): one warm-up
+    step and ``ENSEMBLE_STEPS`` timed steps of the batched fused step
+    (counts zeroed just before the warm-up, read after the timed steps) --
+    step walls, member-steps/s, outers and restart cycles per step (the
+    slowest member), the members at the Newton cap or stopped by the
+    stagnation break above the tolerance (listed) -- then one profiled
+    window of outer iterations.  Gates: finite drag and lift for every
+    member, each member's residual at or below 1e-9 or the member listed,
+    both kernels launched."""
+    import numpy as np
+    import torch
+
+    from navier_stokes_solver_tpu_torch.ensemble import initial_ensemble_state, make_ensemble_step
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    card = nvidia_smi()
+    B, (mx, my), dt = ENSEMBLE_B, ENSEMBLE_MESH, UNSTEADY_DT
+    disc = ensemble_disc(device, ENSEMBLE_MESH, torch.float64)
+    nus = ensemble_viscosities(disc, ENSEMBLE_RE, B)
+    cfg = PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1, krylov_cycle_dtype="float32")
+    step = make_ensemble_step(disc, solver_type=1, prec_type=1, tol=1e-9, newton_max=ENSEMBLE_NEWTON_MAX,
+                              krylov_maxiter=200, precond_cfg=cfg)
+    ts = initial_ensemble_state(disc, B)
+    calls, restore_solves = watch_tangent_solves()
+    cycles, restore_cycles = watch_ir_cycles()
+    steps = []
+    try:
+        reset_counts()
+        for k in range(1 + ENSEMBLE_STEPS):
+            del calls[:], cycles[:]
+            t0 = time.perf_counter()
+            ts = step(ts, nus, dt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = ts.stats
+            stalled = np.zeros(B, bool)
+            for act, iters, _ in calls:
+                stalled = np.where(act, iters == 0, stalled)
+            restarts = np.sum(cycles, axis=0) if cycles else np.zeros(B, np.int64)
+            rec = {
+                "step": int(ts.step[0]), "timed": k > 0, "wall_s": wall, "member_steps_per_s": B / wall,
+                "newton_iters": st.newton_iters.tolist(), "krylov_iters": st.krylov_iters.tolist(),
+                "final_residual": st.final_residual.tolist(), "drag": ts.drag.tolist(), "lift": ts.lift.tolist(),
+                "outers_slowest": int(st.krylov_iters.max()), "restart_cycles": restarts.tolist(),
+                "stalled": [int(m) for m in np.flatnonzero(stalled)],
+            }
+            steps.append(rec)
+            n, res = np.asarray(rec["newton_iters"]), np.asarray(rec["final_residual"])
+            on_tol = res <= 1e-9
+            capped = [int(m) for m in np.flatnonzero(~on_tol & (n >= ENSEMBLE_NEWTON_MAX))]
+            stop = [m for m in rec["stalled"] if not on_tol[m] and n[m] < ENSEMBLE_NEWTON_MAX]
+            print(f"[ensemble-ir] step {rec['step']} ({'timed' if k else 'warm-up, the inlet lift'}): wall {wall!r} s, {rec['member_steps_per_s']!r} member-steps/s; outers (slowest member) {rec['outers_slowest']}, restart cycles (slowest member) {int(restarts.max())}; Newton iterations per member {rec['newton_iters']}; Krylov totals {rec['krylov_iters']}; restart cycles {rec['restart_cycles']}; final residuals {rec['final_residual']}")
+            print(f"[ensemble-ir] step {rec['step']}: residual <= 1e-9 for {int(on_tol.sum())} of {B} members; at the Newton cap ({ENSEMBLE_NEWTON_MAX}) above it: members {capped}; stopped by the stagnation break above it: members {stop}")
+            other = [int(m) for m in np.flatnonzero(~on_tol & (n < ENSEMBLE_NEWTON_MAX)) if m not in stop]
+            if other:
+                raise RuntimeError(f"ensemble-ir: step {rec['step']}: members {other} stopped above the Newton tolerance before the cap without a stagnation break")
+            if not (np.isfinite(rec["drag"]).all() and np.isfinite(rec["lift"]).all()):
+                raise RuntimeError(f"ensemble-ir: step {rec['step']}: non-finite drag or lift")
+        counts = read_counts()
+    finally:
+        restore_solves()
+        restore_cycles()
+    if not bool(torch.isfinite(ts.solution.u).all() and torch.isfinite(ts.solution.p).all()):
+        raise RuntimeError("ensemble-ir: the final fields are not finite")
+    timed = [r["wall_s"] for r in steps[1:]]
+    t_b = statistics.median(timed)
+    print(f"[ensemble-ir] {mx}x{my} Q2/Q1, B {B}, Re {ENSEMBLE_RE[0]:g}..{ENSEMBLE_RE[1]:g}, f32 GMRES-IR cycles: timed step walls {timed} s, median {t_b!r} s, {B / t_b!r} member-steps/s (ensemble-main, the same without the cycles: {main['median_step_s']!r} s, {main['member_steps_per_s']!r} member-steps/s; {card}); launches {json.dumps(counts)}")
+    for name, c in counts.items():
+        if c["launches"] <= 0:
+            raise RuntimeError(f"the ensemble's GMRES-IR path never launched {name}")
+    per = ensemble_outer_profile(disc, nus, ts, cfg, dt)
+    print(f"[ensemble-ir-outer] per outer iteration of the batched tangent solve with f32 cycles (B {B}, profiled): {json.dumps(per)}")
+    base = main["outer"]
+    print(f"[ensemble-ir-outer] against ensemble-main's per outer iteration: kernels {per['kernels']!r} / {base['kernels']!r}, device ms {per['device_ms']!r} / {base['device_ms']!r}, wall ms {per['wall_ms']!r} / {base['wall_ms']!r}, busy {per['busy']:.4f} / {base['busy']:.4f}, readbacks {per['readbacks']!r} / {base['readbacks']!r}")
+    return {"counts": counts, "steps": steps, "median_step_s": t_b, "member_steps_per_s": B / t_b, "outer": per}
+
+
+def phase_ensemble_simplex_lu(device, s):
+    """Config 3 with the direct LU as a Reynolds sweep: ``ENSEMBLE_SIMPLEX_B``
+    members, Re linspace(1, 100), ``ENSEMBLE_SIMPLEX_STEPS`` steps from rest,
+    built from config3-lu-fused's solver ``s`` -- its disc (the dense Schur
+    legs attached as the CLI attaches them), its ``precond_config`` and the
+    step keywords its ``solve_fused`` passes -- so member 0 is config 3
+    itself, held against that run's history.  Per step: wall, factorizations
+    (count, build and factor seconds), each member's Newton iterations and
+    outers; the peak device memory.  Gates: member 0's drag per step within
+    rtol 1e-7 of config3-lu-fused's first steps and its Newton iterations
+    equal; finite drag and lift for every member; both kernels launched 0
+    times (the simplex path runs none)."""
+    import numpy as np
+    import torch
+
+    from navier_stokes_solver_tpu_torch.ensemble import initial_ensemble_state, make_ensemble_step
+    from navier_stokes_solver_tpu_torch.precond import blocks
+
+    card = nvidia_smi()
+    B, o, dt = ENSEMBLE_SIMPLEX_B, s.options, UNSTEADY_DT
+    disc = s.disc
+    nus = ensemble_viscosities(disc, ENSEMBLE_SIMPLEX_RE, B)
+    if float(nus[0]) != s.nu:
+        raise RuntimeError(f"ensemble-simplex-lu: member 0's viscosity {float(nus[0])!r} is not config 3's {s.nu!r}")
+    step = make_ensemble_step(
+        disc, solver_type=o.solver_type, prec_type=o.preconditioner_type, tol=o.tolerance,
+        newton_max=s.NEWTON_MAX_ITERS, newton_tol=s.NEWTON_TOL, krylov_maxiter=2000,
+        basis=max(1, int(o.krylov_basis)), precond_cfg=o.precond_config, consistent=o.consistent_continuity,
+    )
+    ts = initial_ensemble_state(disc, B)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    steps = []
+    for _ in range(ENSEMBLE_SIMPLEX_STEPS):
+        blocks.DIRECT_LU_TIMES.clear()
+        t0 = time.perf_counter()
+        ts = step(ts, nus, dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lu = list(blocks.DIRECT_LU_TIMES)
+        st = ts.stats
+        rec = {
+            "step": int(ts.step[0]), "wall_s": wall, "member_steps_per_s": B / wall,
+            "factorizations": len(lu), "build_s": sum(t["build_s"] for t in lu),
+            "factor_s": sum(t["factor_s"] for t in lu),
+            "factor_s_range": [min(t["factor_s"] for t in lu), max(t["factor_s"] for t in lu)],
+            "newton_iters": st.newton_iters.tolist(), "krylov_iters": st.krylov_iters.tolist(),
+            "final_residual": st.final_residual.tolist(), "drag": ts.drag.tolist(), "lift": ts.lift.tolist(),
+        }
+        steps.append(rec)
+        print(f"[ensemble-simplex-lu] step {json.dumps(rec)}")
+        if sum(rec["newton_iters"]) != len(lu):
+            raise RuntimeError(f"ensemble-simplex-lu: {len(lu)} factorizations for {sum(rec['newton_iters'])} member tangent solves")
+        if not (np.isfinite(rec["drag"]).all() and np.isfinite(rec["lift"]).all()):
+            raise RuntimeError(f"ensemble-simplex-lu: step {rec['step']}: non-finite drag or lift")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    n = lu[0]["n"]
+    ref = [(h["drag_force"], h["newton_iters"]) for h in steps_of(s)][:ENSEMBLE_SIMPLEX_STEPS]
+    got = [(r["drag"][0], r["newton_iters"][0]) for r in steps]
+    rel = max(abs(a - b) / abs(b) for (a, _), (b, _) in zip(got, ref))
+    print(f"[ensemble-simplex-lu] -M {CONFIG3_ARGV[CONFIG3_ARGV.index('-m') + 1].replace(',', 'x')} P2/P1, {s.n_dofs} DoFs per member ({n} unknowns), B {B}, Re {ENSEMBLE_SIMPLEX_RE[0]:g}..{ENSEMBLE_SIMPLEX_RE[1]:g}: step walls {[r['wall_s'] for r in steps]} s; peak device memory {peak} bytes ({B} f32 factors: {B * 4 * n * n} bytes; {card}); launches {json.dumps(counts)}")
+    print(f"[ensemble-simplex-lu] member 0 (Re {1.0 / float(nus[0]):g}) against config3-lu-fused's first {ENSEMBLE_SIMPLEX_STEPS} steps: (drag, Newton iterations) {got} vs {ref}; drag max rel diff {rel:.3e} (gate 1e-7)")
+    if not rel <= 1e-7 or [a for _, a in got] != [b for _, b in ref]:
+        raise RuntimeError("ensemble-simplex-lu: member 0 is not config 3's run")
+    if any(c["launches"] for c in counts.values()):
+        raise RuntimeError(f"ensemble-simplex-lu: the simplex path launched a hand-written kernel: {counts}")
+    return {"counts": counts, "steps": steps, "peak_bytes": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -2573,10 +2932,11 @@ def summed_counts(runs):
 
 def kernel_line(errs, times, counts, counts_by_path):
     """The kernels of the slices' main paths: launches from this slice's
-    (the ensemble's solver matrix at config 5's width, ensemble-matrix)
-    and times at its finest level, batched over its B members, in the
-    Stokes regime (the one with a library yardstick); launches on every
-    main path, and times at every shape, beside them."""
+    (config 5 with f32 GMRES-IR cycles, ensemble-ir) and times at its
+    finest level, batched over its B members, in the Stokes regime (the one
+    with a library yardstick); launches on every main path (0 on the
+    simplex ones, the ensemble's included), and times at every shape,
+    beside them."""
     mesh = f"{ENSEMBLE_MESH[0]}x{ENSEMBLE_MESH[1]} Q2/Q1 float32 B{ENSEMBLE_B}"
     main_tag = {"cell_apply_F": f"{mesh} stokes", "scatter_v_bc": f"{mesh} bc"}
     rows = []
@@ -2622,12 +2982,15 @@ def main():
         f"[budget] depth cuts taken: stationary bench solves {SOLVES} of 2; unsteady 300x100 steps {UNSTEADY_STEPS} of 2 "
         f"(of the 800 of T = 8); config3-lu and config3-lu-fused {CONFIG3_LU_STEPS} of 20 steps (of the record's 800); "
         f"phase 12's unsteady card-only entry dropped; fused-main {FUSED_MAIN_STEPS} of 2 steps; ensemble-matrix's "
-        f"combinations in {ENSEMBLE_MATRIX_WORKERS} worker processes beside the card-vs-CPU phases. Not cut: "
+        f"combinations in {ENSEMBLE_MATRIX_WORKERS} worker processes beside the card-vs-CPU phases; ensemble-matrix (a) "
+        f"{ENSEMBLE_MATRIX_A_STEPS} of {ENSEMBLE_MATRIX_STEPS} steps; ensemble-simplex-lu B {ENSEMBLE_SIMPLEX_B} of 64 "
+        f"(its factors' memory). Not cut: "
         f"unsteady-check steps {CHECK_STEPS}, config 1, matrix at {MATRIX_MESH[0]}x{MATRIX_MESH[1]}, simplex check at "
         f"-M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]}, fused check (3 and 2 steps), config3 its 3 steps, "
         f"simplex-file one step, ensemble-main B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps, cavity-ghia at "
         f"{CAVITY_MESH[0]}x{CAVITY_MESH[1]}, ensemble-matrix B {ENSEMBLE_B}, {len(ENSEMBLE_MATRIX)} combinations, "
-        f"{ENSEMBLE_MATRIX_STEPS} steps each"
+        f"{ENSEMBLE_MATRIX_STEPS} steps each but (a), ensemble-ir B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps, "
+        f"ensemble-simplex-lu {ENSEMBLE_SIMPLEX_STEPS} steps, ensemble-rest-check's four cases"
     )
     phase_build()
     errs = phase_check(device)
@@ -2663,6 +3026,8 @@ def main():
     ensemble = phase_ensemble_main(device)
     lap("ensemble-main")
     print(f"[ensemble-main] {ensemble['member_steps_per_s']!r} member-steps/s, median step {ensemble['median_step_s']!r} s, B = 1 control {ensemble['control_step_s']!r} s, batch_efficiency_vs_single {ensemble['batch_efficiency_vs_single']!r}; per outer iteration {ensemble['outer']['kernels']!r} device kernels, {ensemble['outer']['device_ms']!r} device ms, {ensemble['outer']['wall_ms']!r} ms wall, {ensemble['outer']['readbacks']!r} readbacks, busy {ensemble['outer']['busy']:.4f}, our kernels {ensemble['outer']['ours_share']:.4f} of the device time")
+    ensemble_ir = phase_ensemble_ir(device, ensemble)
+    lap("ensemble-ir")
     sc, cavity = phase_cavity_ghia(device)
     couter = phase_outer(sc, regimes=(False,), tag="cavity-outer")
     print(f"[cavity-ghia] per outer iteration at the converged state, Newton regime (the Stokes rhs of a converged cavity is zero): {couter['newton']['kernels']!r} device kernels, {couter['newton']['device_ms']!r} device ms, {couter['newton']['wall_ms']!r} ms wall, {couter['newton']['readbacks']!r} readbacks, busy {couter['newton']['busy']:.4f}")
@@ -2678,8 +3043,10 @@ def main():
         # the fourth to seventh CPU sides start when a worker is free
         cpu = {name: pool.submit(cpu_job, name)
                for name in ("unsteady-check", "matrix", "simplex-check", "fused-check", "ensemble-check",
-                            "ensemble-matrix-check", "cavity-check")}
+                            "ensemble-matrix-check", "cavity-check", "ensemble-rest-check")}
         matrix_runs = start_ensemble_matrix(card_pool)
+        # four card sides, after the combinations, in the same two workers
+        card = {name: card_pool.submit(card_job, name) for name in CARD_SIDES}
         phase_unsteady_check(device, cpu["unsteady-check"])
         lap("unsteady-check (the card side, and the wait for its CPU side)")
         phase_matrix(device, cpu["matrix"])
@@ -2688,17 +3055,19 @@ def main():
         lap("profile (the card side, and the wait for its CPU side)")
         phase_simplex_check(device, cpu["simplex-check"])
         lap("simplex-check (the card side, and the wait for its CPU side)")
-        phase_fused_check(device, cpu["fused-check"])
-        lap("fused-check (the card side, and the wait for its CPU side)")
-        phase_ensemble_check(device, cpu["ensemble-check"])
-        lap("ensemble-check (the card side, and the wait for its CPU side)")
-        phase_ensemble_matrix_check(device, cpu["ensemble-matrix-check"])
-        lap("ensemble-matrix-check (the card side, and the wait for its CPU side)")
         phase_cavity_check(device, cpu["cavity-check"])
         lap("cavity-check (the card side, and the wait for its CPU side)")
+        phase_fused_check(device, cpu["fused-check"], card["fused-check"])
+        lap("fused-check (the wait for its card side in a card worker, and for its CPU side)")
+        phase_ensemble_check(device, cpu["ensemble-check"], card["ensemble-check"])
+        lap("ensemble-check (the wait for both sides)")
+        phase_ensemble_matrix_check(device, cpu["ensemble-matrix-check"], card["ensemble-matrix-check"])
+        lap("ensemble-matrix-check (the wait for both sides)")
+        phase_ensemble_rest_check(device, cpu["ensemble-rest-check"], card["ensemble-rest-check"])
+        lap("ensemble-rest-check (the wait for both sides)")
         matrix = phase_ensemble_matrix(device, matrix_runs)
         lap("ensemble-matrix (the wait for its workers after the card-vs-CPU phases)")
-    print(f"[budget] ensemble-matrix and the card-vs-CPU phases (8, 12-14, 18, 22, 27, 29-30) {time.perf_counter() - t_checks:.1f} s")
+    print(f"[budget] ensemble-matrix and the card-vs-CPU phases (8, 12-14, 18, 22, 27, 29-31) {time.perf_counter() - t_checks:.1f} s")
     s3, config3 = phase_config3(device)
     c3outer = phase_outer(s3, regimes=(False,), tag="config3-outer")
     print(f"[config3] setup {config3['setup_s']:.3f} s, per-step walls {[r['wall_s'] for r in config3['steps']]} s, Newton iterations per step {[r['newton_iterations'] for r in config3['steps']]}, outers per step {[r['outer'] for r in config3['steps']]}; Newton regime per outer iteration: {c3outer['newton']['kernels']!r} device kernels, {c3outer['newton']['device_ms']!r} device ms, {c3outer['newton']['wall_ms']!r} ms wall, {c3outer['newton']['readbacks']!r} readbacks, busy {c3outer['newton']['busy']:.4f}")
@@ -2707,8 +3076,11 @@ def main():
     lap("config3")
     _, config3_lu = phase_config3_lu(device)
     lap("config3-lu")
-    _, config3_lu_fused = phase_config3_lu_fused(device)
+    s3f, config3_lu_fused = phase_config3_lu_fused(device)
     lap("config3-lu-fused")
+    simplex_lu = phase_ensemble_simplex_lu(device, s3f)
+    del s3f
+    lap("ensemble-simplex-lu")
     with tempfile.TemporaryDirectory() as tmp:
         _, simplex_file = phase_simplex_file(device, tmp)
         phase_native_io(state300, simplex3, os.path.join(tmp, "curved.msh"))
@@ -2719,8 +3091,9 @@ def main():
         "simplex_file": simplex_file["counts"], "ensemble": ensemble["counts"],
         "ensemble_matrix": summed_counts(c["counts"] for c in matrix.values()),
         "cavity_ghia": cavity["counts"], "cavity_cli": cavity_cli["counts"],
+        "ensemble_ir": ensemble_ir["counts"], "ensemble_simplex_lu": simplex_lu["counts"],
     }
-    print(kernel_line(errs, times, counts_by_path["ensemble_matrix"], counts_by_path))
+    print(kernel_line(errs, times, counts_by_path["ensemble_ir"], counts_by_path))
     print(f"[profile] {len(PROFILE_WINDOWS)} profiler windows: {sum(a for a, _ in PROFILE_WINDOWS)} traces taken "
           f"again; {sum(d > 0 for _, d in PROFILE_WINDOWS)} of the kept traces lost markers "
           f"({sum(d for _, d in PROFILE_WINDOWS)} in all)")

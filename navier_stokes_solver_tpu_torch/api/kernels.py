@@ -10,6 +10,7 @@ Krylov counts are then per member.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from navier_stokes_solver_tpu_torch.krylov import (
@@ -89,12 +90,11 @@ def solve_kernel(
     2) takes no restart basis and no GMRES-IR cycles.
 
     With an ensemble's [B] ``nu`` the B members are solved together
-    (``krylov.gmres_batched``/``fgmres_batched``/``bicgstab_batched``):
-    ``active`` ([B] bool,
-    host) selects the members that iterate -- the others keep
-    ``delta_prev`` -- and ``SolveInfo``'s fields are [B] arrays.  The
-    combinations that batch are checked once, where the ensemble's step is
-    built (``timeloop.make_batched_time_step``).
+    (``krylov.gmres_batched``/``fgmres_batched``/``bicgstab_batched``, the
+    GMRES-IR cycles per member): ``active`` ([B] bool, host) selects the
+    members that iterate -- the others keep ``delta_prev``, and the direct
+    LU does not factor their matrices -- and ``SolveInfo``'s fields are [B]
+    arrays.
     """
     batched = is_batched(nu)
     ops = _ops_for(disc)
@@ -103,6 +103,7 @@ def solve_kernel(
     ctx = LinearContext(
         disc=disc, nu=nu, inv_dt=inv_dt, stokes=stokes, linq=linq, diag_f=dF,
         state_u=None if stokes else st.u, ops=ops,
+        active=None if active is None or not batched else np.asarray(active, bool),
     )
     M = make_preconditioner(prec_type, ctx, variant=variant, cfg=precond_cfg)
     A = ctx.jacobian()
@@ -116,13 +117,13 @@ def solve_kernel(
                 u=torch.where(disc.u_active, x0.u, 0.0),
                 p=torch.where(disc.p_active, x0.p, 0.0),
             )
-    kw = {} if solver_type == 2 else dict(basis=basis)
+    kw = {} if solver_type == 2 else dict(
+        basis=basis, lo=make_krylov_lo(prec_type, ctx, variant=variant, cfg=precond_cfg)
+    )
     if batched:
         return _SOLVERS_BATCHED[solver_type](
             A, rhs, x0, tol=tol, maxiter=maxiter, M=M, active=active, **kw
         )
-    if solver_type != 2:
-        kw["lo"] = make_krylov_lo(prec_type, ctx, variant=variant, cfg=precond_cfg)
     return _SOLVERS[solver_type](A, rhs, x0, tol=tol, maxiter=maxiter, M=M, **kw)
 
 

@@ -1,5 +1,7 @@
 """Batched Reynolds sweeps of the fused unsteady step (the JAX package's
-``ensemble/sweep.py``)."""
+``ensemble/sweep.py``), on the structured lattice or the ``-M`` simplex
+disc, under every solver and preconditioner of the step (GMRES-IR cycles
+and the direct LU included)."""
 
 from __future__ import annotations
 
@@ -7,22 +9,23 @@ import torch
 
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
 from navier_stokes_solver_tpu_torch.timeloop import TimeState, initial_state, make_batched_time_step
+from navier_stokes_solver_tpu_torch.unstructured.tri import SimplexDisc
 
 __all__ = ["make_ensemble_step", "initial_ensemble_state", "run_sweep"]
 
 
-def make_ensemble_step(disc: Disc, **step_kwargs):
+def make_ensemble_step(disc: Disc | SimplexDisc, **step_kwargs):
     """Batched step ``step(state, nus, dt)``: the state has a leading member
     axis, ``nus`` is [B] (``timeloop.make_batched_time_step``)."""
     return make_batched_time_step(disc, **step_kwargs)
 
 
-def initial_ensemble_state(disc: Disc, batch: int) -> TimeState:
+def initial_ensemble_state(disc: Disc | SimplexDisc, batch: int) -> TimeState:
     """``timeloop.initial_state`` broadcast over ``batch`` members."""
     return initial_state(disc, batch)
 
 
-def as_viscosities(disc: Disc, nus) -> torch.Tensor:
+def as_viscosities(disc: Disc | SimplexDisc, nus) -> torch.Tensor:
     """``nus`` as the [B] tensor the batched step takes: the disc's dtype,
     on its device (the JAX package's ``jnp.asarray(nus, disc.dtype)``)."""
     nus = torch.as_tensor(nus, dtype=torch.float64).to(device=disc.device, dtype=disc.dtype)
@@ -31,7 +34,7 @@ def as_viscosities(disc: Disc, nus) -> torch.Tensor:
     return nus.contiguous()
 
 
-def run_sweep(disc: Disc, nus, dt, n_steps: int, mesh=None, **step_kwargs):
+def run_sweep(disc: Disc | SimplexDisc, nus, dt, n_steps: int, mesh=None, **step_kwargs):
     """Run B simultaneous unsteady simulations (one per viscosity) for
     ``n_steps`` steps from rest.
 

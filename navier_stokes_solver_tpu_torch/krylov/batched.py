@@ -27,7 +27,12 @@ the arithmetic of ``solvers._givens_column``, element for element; the
 back substitution is ``solvers._back_substitute`` itself, member by
 member.  ``SolveInfo``'s fields are [B] NumPy arrays.
 
-GMRES-IR cycles (``LowCycle``) have no batched form yet (ROADMAP A.D8b).
+GMRES-IR cycles (``LowCycle``, ``solvers._gmres_core``'s ``lo``) run per
+member: each member's restart residual and iterate stay in the operator
+dtype, its cycle tolerance is ``max(tol, lo.eta * beta)`` and its stall
+reference its own previous restart residual; a member that stops
+(converged, non-finite, or stalled) keeps its iterate and its count while
+the others cycle on.  One [B] row is read back per restart.
 """
 
 from __future__ import annotations
@@ -39,7 +44,9 @@ from navier_stokes_solver_tpu_torch.krylov.solvers import (
     _EPS_BREAKDOWN,
     _NP_DTYPES,
     SolveInfo,
+    LowCycle,
     _back_substitute,
+    _cast,
     _identity,
     _leaves,
     _map,
@@ -194,20 +201,23 @@ def _arnoldi_cycle(r, beta, beta_w, tol_w, iters, maxiter, basis, flexible, matv
     return corr, iters, res, done, steps
 
 
-def _gmres_core(matvec, b, x0, *, tol, maxiter: int, M, basis: int, flexible: bool, active=None):
-    """``solvers._gmres_core`` (full precision, no GMRES-IR) for B members.
+def _gmres_core(matvec, b, x0, *, tol, maxiter: int, M, basis: int, flexible: bool, active=None,
+                lo: LowCycle | None = None):
+    """``solvers._gmres_core`` for B members.
 
     ``tol``: a number or per-member [B] tolerances (absolute).  ``active``:
     optional [B] bool (host) -- members outside it do not iterate and keep
-    ``x0``.
+    ``x0``.  ``lo``: GMRES-IR restart cycles (``_gmres_ir``).
     """
     M = M or _identity
     bl = _leaves(b)
     B, dev = bl[0].shape[0], bl[0].device
-    wd_np = _NP_DTYPES[bl[0].dtype]
     tol_h = _host_tol(tol, B)
-    tol_w = tol_h.astype(wd_np)
     act = np.ones(B, bool) if active is None else np.asarray(active, bool).copy()
+    if lo is not None:
+        return _gmres_ir(matvec, b, x0, tol_h, maxiter, basis, flexible, act, lo)
+    wd_np = _NP_DTYPES[bl[0].dtype]
+    tol_w = tol_h.astype(wd_np)
 
     def initial_residual(x):
         r = _map(torch.sub, b, matvec(x))
@@ -246,16 +256,80 @@ def _gmres_core(matvec, b, x0, *, tol, maxiter: int, M, basis: int, flexible: bo
     return x, SolveInfo(iters, done & finite & act, res, ~finite)
 
 
-def gmres_batched(matvec, b, x0, *, tol, maxiter=1000, M=None, basis=30, active=None):
+def _gmres_ir(matvec, b, x0, tol_h, maxiter, basis, flexible, act, lo: LowCycle):
+    """GMRES-IR for B members (``solvers._gmres_core`` with ``lo``): the
+    Arnoldi cycles in ``lo.dtype`` through ``lo.matvec`` and ``lo.M``, the
+    restart residual ``b - A x`` and the iterate in the operator dtype.
+    Per member, at every restart: stop before the cycle when the true
+    residual is at or below ``tol``, not finite, or above ``lo.stall``
+    times the previous restart's (the previous cycle failed to reduce it);
+    otherwise one cycle to ``max(tol, lo.eta * beta)`` in the working
+    dtype (the full-precision preconditioner is not used: the
+    left-preconditioned restart residual takes ``lo.M``, as in
+    ``solvers._gmres_core``).  A stopped member keeps its iterate and its
+    count -- the JAX
+    package's ``vmap`` of the loop, where a member whose condition is false
+    keeps its carry -- and ``resnorm`` is its last true residual."""
+    hi = _leaves(b)[0].dtype
+    wd = lo.dtype or torch.float32
+    wd_np = _NP_DTYPES[wd]
+    w_mv, w_M = lo.matvec, lo.M or _identity
+    B, dev = tol_h.shape[0], _leaves(b)[0].device
+
+    def initial_residual(x, run):
+        r = _map(torch.sub, b, matvec(x))
+        if flexible:
+            return r
+        # a stopped member's input is zero: the nested solves stop at once
+        r = _select(_mask_on(run, dev), r, _map(torch.zeros_like, r))
+        return _cast(w_M(_cast(r, wd)), hi)
+
+    x = x0
+    iters = np.zeros(B, np.int64)
+    res = np.full(B, np.inf)
+    stall_ref = np.full(B, np.inf)
+    done = ~act
+    while True:
+        run = ~done & (iters < maxiter)
+        if not run.any():
+            break
+        r_hi = initial_residual(x, run)
+        beta_hi = bnorm(r_hi)
+        bh = beta_hi.cpu().numpy().astype(np.float64)  # the one readback of this restart
+        with np.errstate(invalid="ignore"):
+            stop = run & ((bh <= tol_h) | ~np.isfinite(bh) | (bh > lo.stall * stall_ref))
+            # one low-precision cycle cannot reduce the residual below
+            # ~eps(lo) relative to the restart residual: stop it at eta * beta
+            tol_w = np.maximum(tol_h, lo.eta * bh).astype(wd_np)
+        cyc = run & ~stop
+        if cyc.any():
+            corr, iters, _, _, steps = _arnoldi_cycle(
+                _cast(r_hi, wd), beta_hi.to(wd), bh.astype(wd_np), tol_w, iters, maxiter, basis,
+                flexible, w_mv, w_M, cyc,
+            )
+            if corr is not None:
+                x = _select(_mask_on(steps > 0, dev), _map(lambda a, c: a + c.to(a.dtype), x, corr), x)
+        res = np.where(run, bh, res)
+        stall_ref = np.where(run, bh, stall_ref)
+        done = done | stop
+    # exits: converged, non-finite (breakdown), stall or maxiter; ``res`` is
+    # each member's last true residual
+    finite = np.isfinite(res)
+    with np.errstate(invalid="ignore"):
+        converged = done & finite & act & (res <= tol_h)
+    return x, SolveInfo(iters, converged, res, act & ~finite)
+
+
+def gmres_batched(matvec, b, x0, *, tol, maxiter=1000, M=None, basis=30, active=None, lo=None):
     """Left-preconditioned restarted GMRES of each member (``solvers.gmres``)."""
     return _gmres_core(matvec, b, x0, tol=tol, maxiter=maxiter, M=M, basis=basis,
-                       flexible=False, active=active)
+                       flexible=False, active=active, lo=lo)
 
 
-def fgmres_batched(matvec, b, x0, *, tol, maxiter=1000, M=None, basis=30, active=None):
+def fgmres_batched(matvec, b, x0, *, tol, maxiter=1000, M=None, basis=30, active=None, lo=None):
     """Flexible GMRES of each member (``solvers.fgmres``)."""
     return _gmres_core(matvec, b, x0, tol=tol, maxiter=maxiter, M=M, basis=basis,
-                       flexible=True, active=active)
+                       flexible=True, active=active, lo=lo)
 
 
 # ---------------------------------------------------------------------------

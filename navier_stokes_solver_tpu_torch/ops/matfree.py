@@ -76,6 +76,9 @@ __all__ = [
     "make_apply_jacobian",
 ]
 
+# the member axis of an ensemble's linearization: after the quadrature axis
+LINQ_MEMBER_AXIS = 1
+
 
 # ---------------------------------------------------------------------------
 # Quadrature-point evaluation (deal.II FEValues::get_function_{values,gradients})

@@ -34,7 +34,8 @@ import torch
 
 from navier_stokes_solver_tpu_torch.api import kernels
 from navier_stokes_solver_tpu_torch.ops import Blocks
-from navier_stokes_solver_tpu_torch.precond.blocks import check_batched
+from navier_stokes_solver_tpu_torch.ops.blocks import per_member
+from navier_stokes_solver_tpu_torch.precond.blocks import PrecondConfig
 
 __all__ = [
     "TimeState",
@@ -67,8 +68,9 @@ def _int32(n: int, device) -> torch.Tensor:
 
 
 def initial_state(disc, batch: int | None = None) -> TimeState:
-    """The zero state at step 0; with ``batch``, every leaf broadcast over a
-    leading axis of B members (contiguous, as the kernels read it)."""
+    """The zero state at step 0 on either backend; with ``batch``, every
+    leaf broadcast over a leading axis of B members (contiguous, as the
+    kernels read it)."""
     z = torch.zeros((), dtype=disc.dtype, device=disc.device)
     ts = TimeState(
         solution=Blocks(u=disc.zeros_u(), p=disc.zeros_p()),
@@ -171,10 +173,10 @@ def make_batched_time_step(
     standalone step's, and its fields differ from that step's by the
     rounding of the batched products only.
 
-    The inlet lift applies at step 0, which all members share.  The
-    combinations that batch: ``precond.blocks.check_batched``, checked
-    here, once."""
-    check_batched(disc, precond_cfg)
+    The inlet lift applies at step 0, which all members share.  Every
+    solver and preconditioner (the direct LU too), the GMRES-IR cycles and
+    either backend (the structured lattice or the ``-M`` simplex disc)
+    batch."""
     return _make_step(
         disc, True, solver_type=solver_type, prec_type=prec_type, tol=tol, newton_max=newton_max,
         newton_tol=newton_tol, krylov_maxiter=krylov_maxiter, inlet_amp=inlet_amp, basis=basis,
@@ -200,7 +202,9 @@ def _make_step(disc, batched: bool, *, solver_type, prec_type, tol, newton_max, 
     of ``make_batched_time_step`` (a leading member axis): one Newton and
     line-search policy, run on host copies of the residual norms with
     per-member masks -- 0-dim for one member, where every select is
-    uniform and costs nothing."""
+    uniform and costs nothing.  ``precond_cfg`` is checked here, once (what
+    is not ported raises before the first step)."""
+    (precond_cfg or PrecondConfig()).check()
 
     def assemble(sol: Blocks, u_old, nu, inv_dt, amp=0.0):
         return kernels.assemble_kernel(
@@ -247,8 +251,8 @@ def _make_step(disc, batched: bool, *, solver_type, prec_type, tol, newton_max, 
                     break
                 if batched:
                     a = alpha.to(device=disc.device, dtype=sol.u.dtype)
-                    trial = Blocks(u=sol.u + a.reshape(-1, 1, 1, 1) * delta.u,
-                                   p=sol.p + a.reshape(-1, 1, 1) * delta.p)
+                    trial = Blocks(u=sol.u + per_member(a, delta.u.dim(), 0) * delta.u,
+                                   p=sol.p + per_member(a, delta.p.dim(), 0) * delta.p)
                 else:
                     a = float(alpha)
                     trial = Blocks(u=sol.u + a * delta.u, p=sol.p + a * delta.p)

@@ -27,6 +27,15 @@ The Jacobian apply of ``make_apply_jacobian`` takes a leading batch axis
 (``u [..., 2, n_nodes_v]``, ``p [..., n_nodes_p]``): the direct-LU matrix
 build applies it to a batch of one-hot columns at once
 (``precond.blocks.dense_jacobian``).
+
+Member axis (an ensemble, ``ensemble/``).  Every operator also takes B
+members at once: ``nu`` a [B] tensor, vectors ``u [B, 2, n_nodes_v]`` and
+``p [B, n_nodes_p]``, and every element-local, quadrature and element-matrix
+tensor with a leading member axis (``[B, T, ...]``; ``LINQ_MEMBER_AXIS``).
+The mesh, masks and tables are shared; ``dirichlet_values``, ``diag_Lp``
+and the pressure operators without ``nu`` do not depend on the member.  A
+member's arithmetic is the unbatched call's, up to the rounding of the
+batched products.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import torch
 import torch.nn.functional as Fn
 
 from navier_stokes_solver_tpu_torch.krylov import tvdot
-from navier_stokes_solver_tpu_torch.ops.blocks import Blocks
+from navier_stokes_solver_tpu_torch.ops.blocks import Blocks, per_member
 from navier_stokes_solver_tpu_torch.ops.matfree import LinearizationQ
 from navier_stokes_solver_tpu_torch.unstructured.tri import SimplexDisc
 
@@ -62,6 +71,8 @@ __all__ = [
 
 # ``make_apply_jacobian``'s apply takes a leading batch axis
 JACOBIAN_BATCH_AXIS = True
+# the member axis of an ensemble's linearization: leading
+LINQ_MEMBER_AXIS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -97,12 +108,12 @@ def _scatter_p(disc: SimplexDisc, loc: torch.Tensor) -> torch.Tensor:
 
 
 def _eval_loc(phi, D, loc):
-    """Values [T, n_q, 2] and physical gradients [T, 2, n_q, 2] of the
-    element-local field ``loc`` [T, n, 2] (``phi`` [n_q, n], ``D`` [T, 2,
-    n_q, n])."""
+    """Values [(B,) T, n_q, 2] and physical gradients [(B,) T, 2, n_q, 2] of
+    the element-local field ``loc`` [(B,) T, n, 2] (``phi`` [n_q, n], ``D``
+    [T, 2, n_q, n])."""
     T, _, n_q, n = D.shape
     vals = torch.matmul(phi, loc)
-    grads = torch.bmm(D.reshape(T, 2 * n_q, n), loc).reshape(T, 2, n_q, 2)
+    grads = torch.matmul(D.reshape(T, 2 * n_q, n), loc).reshape(*loc.shape[:-3], T, 2, n_q, 2)
     return vals, grads
 
 
@@ -111,8 +122,8 @@ def _eval_v(disc: SimplexDisc, u: torch.Tensor):
 
 
 def _eval_p(disc: SimplexDisc, p: torch.Tensor) -> torch.Tensor:
-    """[Np] -> values [T, n_q]."""
-    return p[disc.dofs_p] @ disc.phi_p.T
+    """[(B,) Np] -> values [(B,) T, n_q]."""
+    return p[..., disc.dofs_p] @ disc.phi_p.T
 
 
 def make_dot(disc: SimplexDisc):
@@ -126,12 +137,12 @@ def _project_v(disc: SimplexDisc, f_val, f_grad) -> torch.Tensor:
     """loc[t,m,c] = sum_q w_q detJ_t (f_val[t,q,c] phi_m + sum_k
     f_grad[t,k,q,c] d phi_m / d x_k), scattered to [2, Nv]."""
     T, n_q = disc.wq.shape
-    f = torch.cat([f_val, f_grad.reshape(T, 2 * n_q, 2)], dim=1)
-    return _scatter_v(disc, torch.bmm(disc.PDWv, f))
+    f = torch.cat([f_val, f_grad.reshape(*f_grad.shape[:-4], T, 2 * n_q, 2)], dim=-2)
+    return _scatter_v(disc, torch.matmul(disc.PDWv, f))
 
 
 def _project_p(disc: SimplexDisc, f_val) -> torch.Tensor:
-    return _scatter_p(disc, torch.bmm(disc.PWp, f_val[..., None])[..., 0])
+    return _scatter_p(disc, torch.matmul(disc.PWp, f_val[..., None])[..., 0])
 
 
 def eval_state(disc: SimplexDisc, st: Blocks) -> LinearizationQ:
@@ -144,45 +155,53 @@ def eval_state(disc: SimplexDisc, st: Blocks) -> LinearizationQ:
 # ---------------------------------------------------------------------------
 
 
+def _scaled(nu, K):
+    """``nu * K`` for per-element tensors ``K`` [T, ...]: [B, T, ...] for an
+    ensemble's [B] ``nu``."""
+    return per_member(nu, K.dim() + 1, 0) * K
+
+
 def _velocity_elem(phi, PW, D, K, M, nu, inv_dt, lin):
-    """The Newton-regime velocity block per element, [T, 2n, 2n] with rows
-    and columns (node, component): viscosity nu K, the time term inv_dt M,
-    the linearized convection (u_k . grad) du (same component) and
-    (du . grad) u_k (coupling the components)."""
+    """The Newton-regime velocity block per element, [(B,) T, 2n, 2n] with
+    rows and columns (node, component): viscosity nu K, the time term
+    inv_dt M, the linearized convection (u_k . grad) du (same component)
+    and (du . grad) u_k (coupling the components)."""
     T, n = K.shape[0], K.shape[1]
-    a = torch.einsum("tql,tlqn->tqn", lin.u, D)  # u_k . grad phi_n
-    same = nu * K + inv_dt * M + torch.bmm(PW, a)  # [T, n, n]
+    a = torch.einsum("...tql,tlqn->...tqn", lin.u, D)  # u_k . grad phi_n
+    same = _scaled(nu, K) + inv_dt * M + torch.matmul(PW, a)  # [(B,) T, n, n]
     # (du . grad) u_k: phi_m phi_n d u_k,c / d x_l at row (m, c), column (n, l)
-    cross = torch.einsum("tmq,qn,tlqc->tmcnl", PW, phi, lin.gradu)
+    cross = torch.einsum("tmq,qn,...tlqc->...tmcnl", PW, phi, lin.gradu)
     eye = torch.eye(2, dtype=K.dtype, device=K.device)
-    F = cross + same[:, :, None, :, None] * eye[None, None, :, None, :]
-    return F.reshape(T, 2 * n, 2 * n)
+    F = cross + same[..., :, :, None, :, None] * eye[None, None, :, None, :]
+    return F.reshape(*F.shape[:-5], T, 2 * n, 2 * n)
 
 
 def _elem_mv(mat: torch.Tensor, loc: torch.Tensor) -> torch.Tensor:
     """Per-element matrix times element-local vectors: [T, i, j] x
     [..., T, j, c] -> [..., T, i, c], one product batched over the elements
     (a leading batch folds into its free dimension; without one, ``bmm``,
-    whose host cost is half the einsum's)."""
-    if loc.dim() == 3:
-        return torch.bmm(mat, loc)
+    whose host cost is half the einsum's); an ensemble's per-member
+    matrices [B, T, i, j] x [B, T, j, c] as one batched product."""
+    if mat.dim() == 4 or loc.dim() == 3:
+        return torch.matmul(mat, loc)
     return torch.einsum("tij,...tjc->...tic", mat, loc)
 
 
 def _stokes_apply(K, nu):
     """The Stokes velocity block (the components decouple): nu K per
-    component on element-local [T, n, 2]."""
-    Kn = nu * K
+    component on element-local [(B,) T, n, 2]."""
+    Kn = _scaled(nu, K)
     return lambda loc: _elem_mv(Kn, loc)
 
 
 def _F_elem_apply(disc, nu, inv_dt, linq, stokes):
-    """Element-local apply of the velocity block, [T, 6, 2] -> [T, 6, 2]."""
+    """Element-local apply of the velocity block, [(B,) T, 6, 2] -> the
+    same."""
     if stokes:
         return _stokes_apply(disc.Kv, nu)
     Fe = _velocity_elem(disc.phi_v, disc.PWv, disc.Dv, disc.Kv, disc.Mv, nu, inv_dt, linq)
-    T = Fe.shape[0]
-    return lambda loc: _elem_mv(Fe, loc.reshape(T, 12, 1)).reshape(T, 6, 2)
+    shape = Fe.shape[:-2]  # [(B,) T]
+    return lambda loc: _elem_mv(Fe, loc.reshape(*shape, 12, 1)).reshape(*shape, 6, 2)
 
 
 def make_apply_F(disc, nu, inv_dt, linq, *, stokes, bc_diag=None):
@@ -205,13 +224,18 @@ def apply_F(disc, nu, inv_dt, linq, x_u, *, stokes, bc_diag=None):
 def make_apply_jacobian(disc, nu, inv_dt, linq, bc_diag, *, stokes):
     """``x -> J x`` (``Blocks``) with the element matrices assembled once:
     the velocity rows [F | B^T] and the continuity rows -/+ B (Stokes /
-    Newton regime), Dirichlet velocity rows ``bc_diag * x``."""
+    Newton regime), Dirichlet velocity rows ``bc_diag * x``.  One run's
+    apply takes a leading batch axis of vectors; an ensemble's, its
+    members."""
     T = disc.n_tri
-    if stokes:
-        Fe = torch.kron(nu * disc.Kv, torch.eye(2, dtype=disc.dtype, device=disc.device))
+    if stokes:  # nu K (x) I2: rows and columns (node, component)
+        Kn = _scaled(nu, disc.Kv)
+        eye = torch.eye(2, dtype=disc.dtype, device=disc.device)
+        Fe = (Kn[..., :, None, :, None] * eye[:, None, :]).reshape(*Kn.shape[:-2], 12, 12)
     else:
         Fe = _velocity_elem(disc.phi_v, disc.PWv, disc.Dv, disc.Kv, disc.Mv, nu, inv_dt, linq)
-    Ju = torch.cat([Fe, -disc.Be.transpose(1, 2)], dim=2)  # [T, 12, 15]
+    Bt = -disc.Be.transpose(1, 2)
+    Ju = torch.cat([Fe, Bt.expand(*Fe.shape[:-2], 12, 3)], dim=-1)  # [(B,) T, 12, 15]
     Jp = -disc.Be if stokes else disc.Be  # [T, 3, 12]
 
     def apply(x: Blocks) -> Blocks:
@@ -235,7 +259,7 @@ def apply_jacobian(disc, nu, inv_dt, linq, bc_diag, x: Blocks, *, stokes):
 
 
 def apply_Bt(disc, x_p, *, zero_dirichlet_rows=False):
-    loc = _elem_mv(disc.Be.transpose(1, 2), x_p[disc.dofs_p][..., None])
+    loc = _elem_mv(disc.Be.transpose(1, 2), x_p[..., disc.dofs_p][..., None])
     y = _scatter_v(disc, -loc)
     if zero_dirichlet_rows:
         y = torch.where(disc.u_dirichlet, 0.0, y)
@@ -244,16 +268,17 @@ def apply_Bt(disc, x_p, *, zero_dirichlet_rows=False):
 
 def apply_B(disc, x_u, *, stokes):
     T = disc.n_tri
-    loc = _elem_mv(disc.Be, _gather_v(disc, x_u).reshape(T, 12, 1))[..., 0]
+    loc = _elem_mv(disc.Be, _gather_v(disc, x_u).reshape(*x_u.shape[:-2], T, 12, 1))[..., 0]
     return _scatter_p(disc, -loc if stokes else loc)
 
 
 def _p_elem(disc, mat, x_p):
-    return _elem_mv(mat, x_p[disc.dofs_p][..., None])[..., 0]
+    return _elem_mv(mat, x_p[..., disc.dofs_p][..., None])[..., 0]
 
 
 def apply_Mp(disc, nu, x_p):
-    return _scatter_p(disc, _p_elem(disc, disc.Mpe, x_p)) / nu
+    y = _scatter_p(disc, _p_elem(disc, disc.Mpe, x_p))
+    return y / per_member(nu, y.dim(), 0)
 
 
 def apply_Lp(disc: SimplexDisc, x_p: torch.Tensor) -> torch.Tensor:
@@ -270,9 +295,9 @@ def apply_Fp(disc: SimplexDisc, nu, inv_dt, linq, x_p: torch.Tensor) -> torch.Te
     Fp = inv_dt * Mp_raw + nu * Lp + N_p(u_k), with ``apply_Lp``'s
     elimination convention."""
     free = disc.p_free
-    mat = nu * disc.Lpe + inv_dt * disc.Mpe
+    mat = _scaled(nu, disc.Lpe) + inv_dt * disc.Mpe
     if linq is not None:
-        mat = mat + torch.bmm(disc.PWp, torch.einsum("tql,tlqn->tqn", linq.u, disc.Dp))
+        mat = mat + torch.matmul(disc.PWp, torch.einsum("...tql,tlqn->...tqn", linq.u, disc.Dp))
     y = _scatter_p(disc, _p_elem(disc, mat, torch.where(free, x_p, 0.0)))
     return torch.where(free, y, x_p)
 
@@ -298,16 +323,17 @@ def residual(
     Jacobian-consistent -(q, div u_k) (see ``ops.matfree.residual``)."""
     if stokes:
         ru = p_out * disc.neumann_rhs1
-        rp = disc.zeros_p()
+        rp = torch.zeros_like(st.p)
     else:
         linq = eval_state(disc, st)
         u_old_q = torch.matmul(disc.phi_v, _gather_v(disc, u_old))
-        conv = torch.einsum("tql,tlqc->tqc", linq.u, linq.gradu)
+        conv = torch.einsum("...tql,...tlqc->...tqc", linq.u, linq.gradu)
         f_val = -inv_dt * (linq.u - u_old_q) - conv
         eye = torch.eye(2, dtype=disc.dtype, device=disc.device)
-        f_grad = -nu * linq.gradu + linq.p[:, None, :, None] * eye[None, :, None, :]
+        f_grad = (-per_member(nu, linq.gradu.dim(), 0) * linq.gradu
+                  + linq.p[..., :, None, :, None] * eye[None, :, None, :])
         ru = _project_v(disc, f_val, f_grad) + p_out * disc.neumann_rhs1
-        div = linq.gradu[:, 0, :, 0] + linq.gradu[:, 1, :, 1]
+        div = linq.gradu[..., 0, :, 0] + linq.gradu[..., 1, :, 1]
         rp = _project_p(disc, -div if consistent else div)
     g = dirichlet_values(disc, inlet_amp)
     ru = torch.where(disc.u_dirichlet, bc_diag * g, ru)
@@ -320,16 +346,16 @@ def residual(
 
 
 def _velocity_diag(phi, PW, D, K, M, nu, inv_dt, lin, stokes):
-    """Element diagonals [T, n, 2] of the velocity block (the diagonal of
-    ``_velocity_elem``)."""
-    visc = nu * torch.diagonal(K, dim1=1, dim2=2)
+    """Element diagonals [(B,) T, n, 2] of the velocity block (the diagonal
+    of ``_velocity_elem``)."""
+    visc = _scaled(nu, torch.diagonal(K, dim1=1, dim2=2))
     if stokes:
-        return visc[..., None].expand(-1, -1, 2)
-    a = torch.einsum("tql,tlqn->tqn", lin.u, D)
-    same = visc + inv_dt * torch.diagonal(M, dim1=1, dim2=2) + torch.einsum("tnq,tqn->tn", PW, a)
+        return visc[..., None].expand(*visc.shape, 2)
+    a = torch.einsum("...tql,tlqn->...tqn", lin.u, D)
+    same = visc + inv_dt * torch.diagonal(M, dim1=1, dim2=2) + torch.einsum("tnq,...tqn->...tn", PW, a)
     # phi_n^2 d u_k,c / d x_c for component c
-    dcc = torch.stack([lin.gradu[:, 0, :, 0], lin.gradu[:, 1, :, 1]], dim=-1)  # [T, q, 2]
-    return same[..., None] + torch.bmm(PW * phi.T[None], dcc)
+    dcc = torch.stack([lin.gradu[..., 0, :, 0], lin.gradu[..., 1, :, 1]], dim=-1)  # [(B,) T, q, 2]
+    return same[..., None] + torch.matmul(PW * phi.T[None], dcc)
 
 
 def diag_F(disc, nu, inv_dt, linq, *, stokes):
@@ -346,7 +372,8 @@ def diag_Lp(disc):
 
 
 def diag_Mp(disc, nu):
-    d = _scatter_p(disc, torch.diagonal(disc.Mpe, dim1=1, dim2=2)) / nu
+    d = _scatter_p(disc, torch.diagonal(disc.Mpe, dim1=1, dim2=2))
+    d = d / per_member(nu, d.dim() + 1, 0)
     return torch.where(d == 0.0, 1.0, d)
 
 
@@ -357,22 +384,22 @@ def diag_Mp(disc, nu):
 
 def lift_drag_forces(disc, nu, st: Blocks):
     """(drag, lift) forces: the stress integrated over the (curved-mesh
-    polygon) cylinder edges, 0-dim tensors."""
+    polygon) cylinder edges, 0-dim tensors ([B] for an ensemble's)."""
     if disc.cyl_tri.shape[0] == 0:
-        z = torch.zeros((), dtype=disc.dtype, device=disc.device)
+        z = torch.zeros(st.p.shape[:-1], dtype=disc.dtype, device=disc.device)
         return z, z
     dphi_e = disc.dphi_v_edge[disc.cyl_edge]  # [E, qe, 6, 2]
     phip_e = disc.phi_p_edge[disc.cyl_edge]  # [E, qe, 3]
-    u_loc = st.u[:, disc.dofs_v[disc.cyl_tri]]  # [2, E, 6]
-    p_loc = st.p[disc.dofs_p[disc.cyl_tri]]  # [E, 3]
+    u_loc = st.u[..., :, disc.dofs_v[disc.cyl_tri]]  # [(B,) 2, E, 6]
+    p_loc = st.p[..., disc.dofs_p[disc.cyl_tri]]  # [(B,) E, 3]
     invJ_e = disc.invJ[disc.cyl_tri]  # [E, 2, 2]
 
-    gref = torch.einsum("eqmd,cem->eqcd", dphi_e, u_loc)
-    grad = torch.einsum("eqcd,edk->eqck", gref, invJ_e)  # [E, qe, 2, 2]
-    pv = torch.einsum("eqn,en->eq", phip_e, p_loc)
+    gref = torch.einsum("eqmd,...cem->...eqcd", dphi_e, u_loc)
+    grad = torch.einsum("...eqcd,edk->...eqck", gref, invJ_e)  # [(B,) E, qe, 2, 2]
+    pv = torch.einsum("eqn,...en->...eq", phip_e, p_loc)
 
-    sig = nu * (grad + grad.transpose(2, 3))
-    sig = sig - pv[:, :, None, None] * torch.eye(2, dtype=disc.dtype, device=disc.device)[None, None]
+    sig = per_member(nu, grad.dim(), 0) * (grad + grad.transpose(-2, -1))
+    sig = sig - pv[..., None, None] * torch.eye(2, dtype=disc.dtype, device=disc.device)
     # force[c] = -sum_e sum_q w_q * len_e * sig[c, d] n_e[d]
-    force = -torch.einsum("eqcd,ed,q,e->c", sig, disc.cyl_normal, disc.w_e, disc.cyl_len)
-    return force[0], force[1]
+    force = -torch.einsum("...eqcd,ed,q,e->...c", sig, disc.cyl_normal, disc.w_e, disc.cyl_len)
+    return force[..., 0], force[..., 1]

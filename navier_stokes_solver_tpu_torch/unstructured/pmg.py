@@ -19,6 +19,11 @@ space on the same triangles (p-coarsening):
 Reference behaviour tied: the inner-solve preconditioner role of
 NSSolverStationary.hpp:225-231 (AMG on the velocity block) /
 NSSolver.hpp:183-189 (ILU).
+
+An ensemble's [B] ``nu`` builds one V-cycle for its B members (vectors
+[B, 2, n]): the transfers are shared, the element matrices and diagonals
+per member (``unstructured.ops``), the fine smoothing the batched GMRES
+smoother, the coarse solve the batched GMRES with a per-member stop.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as Fn
 
-from navier_stokes_solver_tpu_torch.krylov import gmres, tnorm
+from navier_stokes_solver_tpu_torch.krylov import bnorm, gmres, gmres_batched, tnorm
+from navier_stokes_solver_tpu_torch.ops.blocks import is_batched
 from navier_stokes_solver_tpu_torch.ops.matfree import LinearizationQ
 from navier_stokes_solver_tpu_torch.precond.mg import _gmres_smooth, as_dtype_scalar
 from navier_stokes_solver_tpu_torch.unstructured import ops as sops
@@ -36,38 +42,40 @@ __all__ = ["make_p_vcycle", "prolong", "restrict", "apply_F1", "make_apply_F1", 
 
 
 def prolong(disc: SimplexDisc, xc: torch.Tensor) -> torch.Tensor:
-    """[2, n_verts] P1 nodal -> [2, n_nodes_v] P2 nodal (exact on P1)."""
+    """[(B,) 2, n_verts] P1 nodal -> [(B,) 2, n_nodes_v] P2 nodal (exact on
+    P1)."""
     pad = Fn.pad(xc, (0, 1))
-    vert = pad[:, disc.pmg_vert]
-    mid = 0.5 * (pad[:, disc.pmg_edge[:, 0]] + pad[:, disc.pmg_edge[:, 1]])
+    vert = pad[..., disc.pmg_vert]
+    mid = 0.5 * (pad[..., disc.pmg_edge[:, 0]] + pad[..., disc.pmg_edge[:, 1]])
     return torch.where(disc.pmg_vert < disc.n_nodes_p, vert, mid)
 
 
 def restrict(disc: SimplexDisc, rf: torch.Tensor) -> torch.Tensor:
-    """Transpose of ``prolong``: [2, n_nodes_v] -> [2, n_verts]."""
-    add = Fn.pad(0.5 * rf, (0, 1))[:, disc.pmg_mid].sum(dim=-1)
-    return rf[:, disc.pmg_vert_v] + add
+    """Transpose of ``prolong``: [(B,) 2, n_nodes_v] -> [(B,) 2, n_verts]."""
+    add = Fn.pad(0.5 * rf, (0, 1))[..., disc.pmg_mid].sum(dim=-1)
+    return rf[..., disc.pmg_vert_v] + add
 
 
 def _eval_v1(disc: SimplexDisc, u: torch.Tensor):
     """P1 velocity values / physical gradients at the volume quadrature
-    points ([2, n_verts] in; layouts of ``unstructured.ops``)."""
-    return sops._eval_loc(disc.phi_p, disc.Dp, u.T[disc.dofs_p])
+    points ([(B,) 2, n_verts] in; layouts of ``unstructured.ops``)."""
+    return sops._eval_loc(disc.phi_p, disc.Dp, u.transpose(-1, -2)[..., disc.dofs_p, :])
 
 
 def make_apply_F1(disc, nu, inv_dt, linq1, *, stokes, bc_diag):
     """``x -> F1 x``: the P1 rediscretization of the velocity block (the
     weak form of ``unstructured.ops.apply_F`` with the P1 basis), element
     matrices assembled once."""
-    T = disc.n_tri
     if stokes:
         elem = sops._stokes_apply(disc.Lpe, nu)
     else:
         Fe = sops._velocity_elem(disc.phi_p, disc.PWp, disc.Dp, disc.Lpe, disc.Mpe, nu, inv_dt, linq1)
-        elem = lambda loc: sops._elem_mv(Fe, loc.reshape(T, 6, 1)).reshape(T, 3, 2)
+        shape = Fe.shape[:-2]  # [(B,) T]
+        elem = lambda loc: sops._elem_mv(Fe, loc.reshape(*shape, 6, 1)).reshape(*shape, 3, 2)
 
     def apply(x):
-        y = sops._sum_rows(elem(x.T[disc.dofs_p]).reshape(-1, 2), disc.gather_p, True)
+        loc = elem(x.transpose(-1, -2)[..., disc.dofs_p, :])
+        y = sops._sum_rows(loc.reshape(*x.shape[:-2], -1, 2), disc.gather_p, True)
         return torch.where(disc.u_dirichlet_p1, bc_diag * x, y)
 
     return apply
@@ -81,7 +89,7 @@ def diag_F1(disc, nu, inv_dt, linq1, *, stokes):
     loc = sops._velocity_diag(
         disc.phi_p, disc.PWp, disc.Dp, disc.Lpe, disc.Mpe, nu, inv_dt, linq1, stokes
     )
-    d = sops._sum_rows(loc.reshape(-1, 2), disc.gather_p, True)
+    d = sops._sum_rows(loc.reshape(*loc.shape[:-3], -1, 2), disc.gather_p, True)
     return torch.where(d == 0.0, 1.0, d)
 
 
@@ -102,8 +110,11 @@ def make_p_vcycle(
     GMRES smoothing, P1 coarse correction by GMRES to ``coarse_rtol``).
 
     ``diag_f``: the (post-BC) fine-level diagonal of the caller's
-    linearization.  ``dtype``: compute precision of the cycle.
+    linearization.  ``dtype``: compute precision of the cycle.  A [B]
+    ``nu``: the cycle of an ensemble's B members (``state_u``, ``diag_f``
+    and the vectors [B, 2, n]).
     """
+    batched = is_batched(nu)
     out_dtype = disc.dtype
     if dtype is not None and dtype != disc.dtype:
         disc = disc.to(dtype)
@@ -120,7 +131,7 @@ def make_p_vcycle(
     else:
         vals, grads = sops._eval_v(disc, state_u)
         linq = LinearizationQ(u=vals, gradu=grads, p=None)
-        v1, g1 = _eval_v1(disc, state_u[:, disc.pmg_vert_v])  # vertex injection
+        v1, g1 = _eval_v1(disc, state_u[..., disc.pmg_vert_v])  # vertex injection
         linq1 = LinearizationQ(u=v1, gradu=g1, p=None)
 
     A = sops.make_apply_F(disc, nu, inv_dt, linq, stokes=stokes, bc_diag=diag_f)
@@ -130,17 +141,19 @@ def make_p_vcycle(
     dinv = 1.0 / diag_f
     dinv1 = 1.0 / d1
 
+    coarse, norm_ = (gmres_batched, bnorm) if batched else (gmres, tnorm)
+
     def M(b):
         b = b.to(disc.dtype)
-        x = _gmres_smooth(A, dinv, b, torch.zeros_like(b), smooth_degree)
+        x = _gmres_smooth(A, dinv, b, torch.zeros_like(b), smooth_degree, batched=batched)
         r = torch.where(dir_fine, 0.0, b - A(x))
         rc = torch.where(dir_coarse, 0.0, restrict(disc, r))
-        xc, _ = gmres(
-            A1, rc, torch.zeros_like(rc), tol=coarse_rtol * tnorm(rc),
+        xc, _ = coarse(
+            A1, rc, torch.zeros_like(rc), tol=coarse_rtol * norm_(rc),
             maxiter=coarse_iters, M=lambda v: dinv1 * v, basis=coarse_iters,
         )
         x = x + torch.where(dir_fine, 0.0, prolong(disc, xc))
-        x = _gmres_smooth(A, dinv, b, x, smooth_degree)
+        x = _gmres_smooth(A, dinv, b, x, smooth_degree, batched=batched)
         return x.to(out_dtype)
 
     return M

@@ -21,9 +21,10 @@ package's ``vmap`` ensemble and against its own unbatched step, on the CPU.
   Newton: its own count) is not changed by the later iterations, by value.
 * The batched plain kernels equal B per-member plain calls, bit for bit.
 * The JAX-to-port batched ``TimeState`` carrier round-trips.
-* What the ensemble does not batch yet raises ``NotImplementedError``
-  naming ROADMAP A.D8b -- GMRES-IR cycles, ``direct_lu``, the ``-M``
-  simplex disc -- and ``mesh=`` names A.D9.
+* What the ensemble does not batch yet raises ``NotImplementedError``:
+  ``krylov_cycle_dtype="mixed"`` names ROADMAP A.14 and ``mesh=`` A.D9.
+  (GMRES-IR cycles, ``direct_lu`` and the ``-M`` simplex disc batch:
+  ``test_torch_ensemble_rest.py``.)
 """
 
 import jax
@@ -212,15 +213,9 @@ def test_jax_time_state_carrier_round_trips(sweeps):
 
 def test_unported_combinations_name_the_roadmap():
     disc = _disc()
-    cases = [
-        (dict(krylov_cycle_dtype="float32"), "GMRES-IR.*A.D8b"),
-        (dict(direct_lu=True), "direct_lu.*A.D8b"),
-    ]
-    for fields, match in cases:
-        with pytest.raises(NotImplementedError, match=match):
-            make_ensemble_step(disc, precond_cfg=PrecondConfig(**CFG, **fields))
     simplex = make_simplex_disc(*triangulate_channel(make_channel_geometry(8, 4)), dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="simplex.*A.D8b"):
-        make_ensemble_step(simplex, precond_cfg=PrecondConfig(**CFG))
+    for d in (disc, simplex):
+        with pytest.raises(NotImplementedError, match="mixed.*A.14"):
+            make_ensemble_step(d, precond_cfg=PrecondConfig(**CFG, krylov_cycle_dtype="mixed"))
     with pytest.raises(NotImplementedError, match="A.D9"):
         run_sweep(disc, NUS, DT, 1, mesh=object(), precond_cfg=PrecondConfig(**CFG))
