@@ -5,14 +5,21 @@
 
 Phases (each raises on failure; none catches another's).  They run in this
 order, except that phases 21 and 24 run right after phase 4, phase 19 right
-after phase 10 (on its solver), phases 23, 32, 25 and 26 after phase 19, and
+after phase 10 (on its solver), phases 23, 32, 25 and 26 after phase 19,
+phase 36 in a thread beside the card-vs-CPU phases below (and, when it
+outlasts them, phases 15-17, 20, 33 and 28) and phase 35 in a second
+thread from their end, beside phase 36's last stretch and phases 15-17,
+20, 33 and 28 (each is a chain of device
+synchronizations and host round trips of ranks sharing the card, which
+leaves the host and the card mostly idle), and
 phases 8, 12, 13, 14, 27, 18, 22, 29, 31 and 30 together after phase 26:
 the CPU sides of the card-vs-CPU phases (8, 12, 14, 18, 22, 29, 27, 31) run
-in three spawned worker processes meanwhile (18's, 22's, 29's, 27's and
-31's when a worker is free), and phase 30's combinations in two more, on
-the card, followed there by the card sides of phases 18, 22, 29 and 31;
-all are joined before phase 15 -- so the timed paths before and after
-them have the host to themselves; phases 20 and 33 run after phase 16,
+in three spawned worker processes from phase 11 on, beside the timed
+single-process paths (six of the host's eight cores; 18's, 22's, 29's,
+27's and 31's when a worker is free), and phase 30's combinations in two
+more, on the card, followed there by the card sides of phases 18, 22, 29
+and 31; all are joined before phase 15 (the timed paths after them share
+the host and the card with phase 35); phases 20 and 33 run after phase 16,
 and phase 28 after phase 17:
 
   1. device   -- require CUDA; print the card (nvidia-smi name and power
@@ -29,8 +36,9 @@ and phase 28 after phase 17:
                 bit (max |diff| == 0), with and without the boundary rows;
                 every operand's largest element offset must fit the
                 kernels' 32-bit indexing;
-  4. time     -- at every multigrid level of the three main paths, f32,
-                both regimes:
+  4. time     -- at every multigrid level of the three main paths and at
+                dd-north's 150x50 tile shape (``scatter_v_bc`` there also
+                without its rows, as a tile launches it), f32, both regimes:
                 each kernel's device time (CUDA events around 200
                 back-to-back launches queued behind a sleep kernel, so the
                 host cannot starve the card, divided by 200), its
@@ -173,7 +181,7 @@ and phase 28 after phase 17:
                 per member), B = 64, Re 20..100, dt 0.01, tol 1e-9,
                 ``newton_max`` 3, ``krylov_maxiter`` 200, Cahouet-Chabard
                 with one Lp V-cycle, f32 preconditioner: one warm-up step
-                (the inlet lift) and ``ENSEMBLE_STEPS`` (two) timed steps --
+                (the inlet lift) and ``ENSEMBLE_STEPS`` (one) timed step --
                 per-step walls, member-steps/s, per-member Newton
                 iterations, Krylov totals and final residuals (each member
                 at or under 1e-9, or at the Newton cap, listed), finite drag
@@ -255,7 +263,7 @@ and phase 28 after phase 17:
                 Givens estimate); the simplex drags must not be zero.  The
                 CPU side runs in a worker process;
  32. ensemble-ir -- phase 23's configuration (BASELINE config 5, B = 64,
-                a warm-up and ``ENSEMBLE_STEPS`` (two) timed steps) with
+                a warm-up and ``ENSEMBLE_STEPS`` (one) timed step) with
                 ``krylov_cycle_dtype="float32"``: step walls,
                 member-steps/s, outers and restart cycles per step (the
                 slowest member), the members at the Newton cap or stopped by
@@ -277,8 +285,35 @@ and phase 28 after phase 17:
                 counts; one factorization per member tangent solve; finite
                 forces; no hand-written kernel launched (B is 16, not 64: 64
                 f32 factors of 1.94 GB each do not fit in 80 GB);
+ 35. dd-check -- domain decomposition (``dist/``, one process per tile,
+                the ranks sharing the card under gloo: NCCL refuses two
+                ranks on one card) against one rank on the card: the 32x12
+                Q2/Q1 host step (Re 100, tol 1e-10, all-f64 Cahouet-Chabard
+                with one Lp V-cycle, consistent sign) under 2 x 1 and 2 x 2
+                tiles, and ``run_sweep(mesh=...)`` (B = 4, two 'ens' ranks,
+                one step), the three together, beside the one-rank runs:
+                equal Newton counts, Krylov totals within 1.1x + 5, drag
+                within 1e-8, fields within 1e-7, the tile round trips
+                (``tile_blocks`` / ``all_gather_blocks``) bit for bit, both
+                kernels launched on every rank (the kernels built once,
+                before the ranks start); then on every rank's tile, in f64,
+                at every level of its chain (16x12 and 16x6 down), both
+                kernels against their plain versions as in phase 3 --
+                ``scatter_v_bc`` with its seam exchange and, given
+                ``bc_diag``, its rows after it, bit for bit;
+ 36. dd-north -- this slice's full-width path: phase 9's step (300x100
+                Q3/Q2, 657,740 DoFs, Re 100, f32 Cahouet-Chabard) on four
+                150x50 tiles, four ranks sharing the card: Krylov total
+                within 1.1x + 5 of phase 9's, drag within 1e-7, Newton
+                residual <= 1e-9; the step wall (not a speedup), the
+                launches per rank, the collectives per outer iteration and
+                the seam bytes; then, on every rank's tile, the kernel
+                checks of phase 35 in f32 at every level of the tile's
+                chain (150x50 down to 10x2) and the round trip;
  34. report   -- one JSON line of per-kernel results (launches from phase
-                32 and times at its finest level, 60x40 Q2/Q1 B = 64 Stokes,
+                36 and times at its 150x50 tile shape: cell_apply_F Stokes,
+                scatter_v_bc without its rows; max |kernel - plain| over
+                phases 3, 21, 24, 35 and 36,
                 with every path's launches -- the fused 300x100 path's, the
                 ensemble's, the cavity's and the ensemble matrix's among
                 them, 0 on the simplex paths, which run no hand-written
@@ -298,18 +333,28 @@ phases 29-30, whose combinations took 477 s on the card one after the
 other in this process, and now run in two worker processes beside the
 card-vs-CPU phases) -- then ensemble-matrix (a) to one step
 (``ENSEMBLE_MATRIX_A_STEPS``; its 200-iteration-capped solves set the
-pooled block's wall, 245 / 189 s per step; taken for phases 31-33) -- never a
-mesh, config3's three steps, the simplex check, the fused check, the
-unsteady check's second step, the ensemble's B = 64 or its two timed
-steps (ensemble-ir's included), nor a kernel check's shape.  If the cavity phases ever need room,
+pooled block's wall, 245 / 189 s per step; taken for phases 31-33) -- then
+config3 to one of its three steps (``CONFIG3_STEPS``) and
+ensemble-simplex-lu to one (``ENSEMBLE_SIMPLEX_STEPS``) and the
+ensemble's timed steps to one (``ENSEMBLE_STEPS``, ensemble-ir's
+included) -- the last three taken for phases 35-36, whose collectives,
+each a device synchronization and a host round trip, took 780 s before
+they were cut down -- never a mesh, the simplex check, the fused check,
+the unsteady check's second step, the ensemble's B = 64, nor a kernel
+check's shape.  If the cavity phases ever need room,
 cavity-ghia goes to 64x64 (Ghia's own 129^2 velocity grid).  The cuts are
 printed.
 
-Exits non-zero without a result when no CUDA device is available.
+Exits non-zero without a result when no CUDA device is available.  It
+reaps whatever its processes leave behind (``adopt_orphans``) and, after
+the last phase or on a failure, stops every process it started that is
+still there, the multiprocessing resource tracker last, and names them
+(``stop_children``).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -415,8 +460,11 @@ SIMPLEX_TANGENT = {
 # (-M -T 0.03,0.01 -t 1e-9 -m 60,40 -s 1 -r 1.0 -p 1), plus the
 # Jacobian-consistent continuity sign (with the reference's the Newton loop
 # stalls above 1e-9)
-CONFIG3_ARGV = ["-M", "-T", "0.03,0.01", "-t", "1e-9", "-m", "60,40", "-s", "1", "-r", "1.0", "-p", "1",
-                "--consistent-continuity", "--quiet"]
+# config3 runs CONFIG3_STEPS of the script's three steps (the seventh depth
+# cut, from 3: room for phases 35-36)
+CONFIG3_STEPS = 1
+CONFIG3_ARGV = ["-M", "-T", f"{CONFIG3_STEPS * 0.01:g},0.01", "-t", "1e-9", "-m", "60,40", "-s", "1", "-r", "1.0",
+                "-p", "1", "--consistent-continuity", "--quiet"]
 CONFIG3_DOFS = 21_997
 CONFIG3_METRIC = "config3_60x40_re1.0_fused_consistent"  # PERF_NORTHSTAR.json, its 800-step row
 CONFIG3_LU_STEPS = 12  # of the record's 800 (the third depth cut, from 20)
@@ -452,7 +500,7 @@ ENSEMBLE_MESH = (60, 40)
 ENSEMBLE_DOFS = 22_103
 ENSEMBLE_B = 64
 ENSEMBLE_RE = (20.0, 100.0)
-ENSEMBLE_STEPS = 2  # timed steps after the warm-up (never cut below 2)
+ENSEMBLE_STEPS = 1  # timed steps after the warm-up (the ninth depth cut, from 2: room for phases 35-36)
 ENSEMBLE_NEWTON_MAX = 3
 ENSEMBLE_METRIC = "ensemble_sweep_60x40_B64_tol1e-09_schurcahouet"  # PERF_NORTHSTAR.json: the JAX package's TPU record
 # ensemble-check, card vs CPU, all-f64: 16x8 Q2/Q1, B = 3 (Re 20, 60, 100),
@@ -507,7 +555,7 @@ ENSEMBLE_REST_CHECK = [
 # (reduced): 64 f32 factors of 1.94 GB each do not fit the card's 80 GB
 ENSEMBLE_SIMPLEX_B = 16
 ENSEMBLE_SIMPLEX_RE = (1.0, 100.0)
-ENSEMBLE_SIMPLEX_STEPS = 3  # config 3's T = 0.03
+ENSEMBLE_SIMPLEX_STEPS = 1  # of config 3's three (the eighth depth cut, from 3: room for phases 35-36)
 # the lid-driven cavity (geometry/cavity.py): Ghia, Ghia & Shin, J. Comput.
 # Phys. 48 (1982), Re 100, at 128x128 Q2/Q1 (148,739 DoFs; twice Ghia's 129^2
 # grid in each direction) through solve_direct with the options of
@@ -532,6 +580,14 @@ GHIA_V = [(1.0000, 0.00000), (0.9688, -0.05906), (0.9609, -0.07391), (0.9531, -0
 CAVITY_CLI_ARGV = ["--cavity", "-m", "32,32", "-r", "100", "--output", "--quiet"]
 # cavity-check: card against CPU, all-f64, with a body force (cavity_force)
 CAVITY_CHECK_MESH = (32, 32)
+# dd-check: the decomposed host step at DD_CHECK_MESH Q2/Q1 under each tile
+# grid, and run_sweep(mesh=...) over two 'ens' ranks with these viscosities
+DD_CHECK_MESH = (32, 12)
+DD_CHECK_TILES = ((2, 1), (2, 2))
+DD_CHECK_NUS = (1 / 20.0, 1 / 40.0, 1 / 70.0, 1 / 100.0)
+# dd-north: phase 9's step on four 150x50 tiles
+DD_NORTH_TILES = (2, 2)
+DD_NORTH_TILE = (UNSTEADY_MESH[0] // DD_NORTH_TILES[0], UNSTEADY_MESH[1] // DD_NORTH_TILES[1])
 SOURCES = {
     "cell_apply_F": "navier_stokes_solver_tpu_torch/csrc/cell_apply_f.cu",
     "scatter_v_bc": "navier_stokes_solver_tpu_torch/csrc/scatter_v.cu",
@@ -548,6 +604,73 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+
+
+def adopt_orphans():
+    """Make this process the reaper of every process it starts, however
+    deep (Linux ``PR_SET_CHILD_SUBREAPER``): a grandchild whose parent
+    exits becomes this process's child, so ``stop_children`` finds it."""
+    import ctypes
+
+    ctypes.CDLL(None).prctl(36, 1, 0, 0, 0)
+
+
+def descendants() -> dict[int, str]:
+    """The processes below this one still in the process table (zombies
+    included): {pid: "[state] command line"}."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+            name, (state, ppid) = stat[stat.find("(") + 1:stat.rfind(")")], stat.rsplit(")", 1)[1].split()[:2]
+            ppid, cmd = int(ppid), f"[{state}] {cmd or name}"
+        except (OSError, ValueError, IndexError):
+            continue
+        children.setdefault(ppid, []).append((int(entry), cmd))
+    out, todo = {}, [os.getpid()]
+    while todo:
+        for pid, cmd in children.get(todo.pop(), []):
+            out[pid] = cmd
+            todo.append(pid)
+    return out
+
+
+def stop_children(grace_s=10.0) -> dict[int, str]:
+    """Stop every process the script started that is still there: each
+    descendant but the multiprocessing resource tracker (SIGTERM, SIGKILL
+    after ``grace_s``), reaped, then the tracker (closed and reaped: it
+    ends once no process holds its pipe).  Returns what was found besides
+    the tracker: {pid: "[state] command line"}."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    others = lambda: {pid: cmd for pid, cmd in descendants().items() if pid != tracker._pid}
+    found = left = others()
+    deadline, sig = time.monotonic() + grace_s, signal.SIGTERM
+    while left:
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        time.sleep(0.1)
+        while True:  # reap this process's exited children (orphans included)
+            try:
+                if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                    break
+            except ChildProcessError:
+                break
+        left = others()
+        if time.monotonic() > deadline:
+            sig = signal.SIGKILL
+    tracker._stop()
+    return found
 
 
 def phase_device():
@@ -584,16 +707,23 @@ def kernel_case(device, mesh, deg, dtype, seed=0, make_geometry=None):
     """Disc, linearization, velocity lattice and boundary diagonal at one
     shape of the channel (or of ``make_geometry``'s geometry), made from a
     numpy seed: ``(disc, linq, x_u, bc_diag)``."""
+    from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry, make_fe_space
+    from navier_stokes_solver_tpu_torch.ops import make_disc
+
+    geo = (make_geometry or make_channel_geometry)(*mesh)
+    return kernel_inputs(make_disc(make_fe_space(geo, *deg), dtype, device), seed)
+
+
+def kernel_inputs(disc, seed=0):
+    """``kernel_case``'s ``(disc, linq, x_u, bc_diag)`` for a given disc (a
+    tile of a decomposition too), on its device and in its dtype."""
     import numpy as np
     import torch
 
-    from navier_stokes_solver_tpu_torch.geometry import make_channel_geometry, make_fe_space
-    from navier_stokes_solver_tpu_torch.ops import Blocks, diag_F, eval_state, make_disc
+    from navier_stokes_solver_tpu_torch.ops import Blocks, diag_F, eval_state
 
-    geo = (make_geometry or make_channel_geometry)(*mesh)
-    disc = make_disc(make_fe_space(geo, *deg), dtype, device)
     rng = np.random.default_rng(seed)
-    put = lambda a: torch.as_tensor(a, device=device).to(dtype)
+    put = lambda a: torch.as_tensor(a, device=disc.device).to(disc.dtype)
     x = put(rng.standard_normal((2,) + disc.NV))
     st = Blocks(put(0.3 * rng.standard_normal((2,) + disc.NV)), put(rng.standard_normal(disc.NP)))
     linq = eval_state(disc, st)
@@ -719,11 +849,21 @@ def max_offset(t) -> int:
 
 
 def check_shape(device, mesh, deg, dtype, make_geometry=None, label=""):
-    """Both kernels against their plain versions at one shape and dtype, in
-    both regimes (``cell_apply_F`` through both entry points and a permuted
-    lattice layout within ``KERNEL_TOL``, ``scatter_v_bc`` bit for bit,
-    with and without the boundary rows), after the 32-bit offset check of
-    every operand: returns the largest |kernel - plain| of each."""
+    """Both kernels against their plain versions at one shape and dtype
+    (``check_disc``): returns the largest |kernel - plain| of each."""
+    disc, linq, x, bc = kernel_case(device, mesh, deg, dtype, make_geometry=make_geometry)
+    return check_disc(disc, linq, x, bc, f"{label}{mesh[0]}x{mesh[1]} Q{deg[0]}/Q{deg[1]} {str(dtype)[6:]}")
+
+
+def check_disc(disc, linq, x, bc, shape, log=print):
+    """Both kernels against their plain versions on ``disc`` (``shape``
+    names it), in both regimes (``cell_apply_F`` through both entry points
+    and a permuted lattice layout within ``KERNEL_TOL``, ``scatter_v_bc``
+    bit for bit, with and without the boundary rows), after the 32-bit
+    offset check of every operand: returns the largest |kernel - plain| of
+    each.  On a tile of a decomposition ``scatter_v_bc`` (kernel and plain
+    version alike) completes its seams with the neighbours: every rank of
+    the tile grid must call this in step.  ``log`` takes each line."""
     import torch
 
     from navier_stokes_solver_tpu_torch.ops.cell_kernel import (
@@ -735,14 +875,12 @@ def check_shape(device, mesh, deg, dtype, make_geometry=None, label=""):
     from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
 
     err_a = err_b = 0.0
-    disc, linq, x, bc = kernel_case(device, mesh, deg, dtype, make_geometry=make_geometry)
     # the layout a multigrid transfer's einsum hands the kernel
     x_perm = x.permute(2, 0, 1).contiguous().permute(1, 2, 0)
-    tol = KERNEL_TOL[str(dtype)[6:]]
-    shape = f"{label}{mesh[0]}x{mesh[1]} Q{deg[0]}/Q{deg[1]} {str(dtype)[6:]}"
-    views = {"lattice view": lattice_view(x, deg[0], *mesh[::-1]), "permuted view": lattice_view(x_perm, deg[0], *mesh[::-1]), "linq.gradu": linq.gradu, "output": _gather_v(disc, x)}
+    tol = KERNEL_TOL[str(disc.dtype)[6:]]
+    views = {"lattice view": lattice_view(x, disc.deg_v, disc.ny, disc.nx), "permuted view": lattice_view(x_perm, disc.deg_v, disc.ny, disc.nx), "linq.gradu": linq.gradu, "output": _gather_v(disc, x)}
     offsets = {k: max_offset(v) for k, v in views.items()}
-    print(f"[check] {shape}: largest element offsets {json.dumps(offsets)} (32-bit limit {INDEX_LIMIT})")
+    log(f"[check] {shape}: largest element offsets {json.dumps(offsets)} (32-bit limit {INDEX_LIMIT})")
     if max(offsets.values()) >= INDEX_LIMIT:
         raise RuntimeError(f"an operand at {shape} exceeds the kernels' 32-bit indexing: {offsets}")
     for stokes in (True, False):
@@ -762,7 +900,7 @@ def check_shape(device, mesh, deg, dtype, make_geometry=None, label=""):
             bad = int((err > tol + tol * want.abs()).sum())
             e = float(err.max())
             err_a = max(err_a, e)
-            print(f"[check] cell_apply_F ({entry}) {tag}: max|kernel-plain| {e:.3e} (max|plain| {float(want.abs().max()):.3e}), {bad} entries outside rtol=atol={tol:g}")
+            log(f"[check] cell_apply_F ({entry}) {tag}: max|kernel-plain| {e:.3e} (max|plain| {float(want.abs().max()):.3e}), {bad} entries outside rtol=atol={tol:g}")
             if bad:
                 raise RuntimeError(f"cell_apply_F ({entry}) disagrees with its plain version at {tag}")
         for b_, xx, what in ((None, x, "raw"), (bc, x, "bc"), (bc, x_perm, "bc, permuted x")):
@@ -771,7 +909,7 @@ def check_shape(device, mesh, deg, dtype, make_geometry=None, label=""):
             e = float((g - w).abs().max())
             err_b = max(err_b, e)
             same = torch.equal(g, w)
-            print(f"[check] scatter_v_bc ({what}) {tag}: max|kernel-plain| {e!r}, bitwise equal {same}")
+            log(f"[check] scatter_v_bc ({what}) {tag}: max|kernel-plain| {e!r}, bitwise equal {same}")
             if e != 0.0 or not same:
                 raise RuntimeError(f"scatter_v_bc ({what}) is not bit-identical to its plain version at {tag}")
     return err_a, err_b
@@ -794,10 +932,11 @@ def phase_check(device):
 # ---------------------------------------------------------------------------
 
 
-def time_shape(device, mesh, deg, make_geometry=None, label=""):
+def time_shape(device, mesh, deg, make_geometry=None, label="", raw=False):
     """Phase 4's records of both kernels at one shape, f32: {kernel: {tag:
     record}} -- each kernel's device time, host-inclusive time, plain
-    version's time, library yardstick's time and bound, in both regimes."""
+    version's time, library yardstick's time and bound, in both regimes;
+    with ``raw`` also ``scatter_v_bc`` without its boundary rows."""
     import torch
 
     from navier_stokes_solver_tpu_torch.ops.cell_kernel import (
@@ -847,15 +986,30 @@ def time_shape(device, mesh, deg, make_geometry=None, label=""):
     tag = f"{shape} bc"
     out["scatter_v_bc"][tag] = rec
     print(f"[time] scatter_v_bc {tag}: {json.dumps(rec)}")
+    if raw:
+        # without the boundary rows: a tile's launch (its rows come after
+        # the seam exchange)
+        rec = {
+            "ms": device_ms(lambda: scatter_v_bc(disc, loc)),
+            "host_ms": host_ms(lambda: scatter_v_bc(disc, loc)),
+            "plain_ms": device_ms(lambda: scatter_v_bc_plain(disc, loc), PLAIN_CALLS),
+            "library_ms": device_ms(lambda: acc.index_add_(0, idx, src)),
+        }
+        rec["bound_ms"], rec["bound_by"] = bound(*scatter_cost(disc, False))
+        tag = f"{shape} raw"
+        out["scatter_v_bc"][tag] = rec
+        print(f"[time] scatter_v_bc {tag}: {json.dumps(rec)}")
     return out
 
 
 def phase_time(device):
     """Per kernel: {shape tag: timing record}, f32, at every multigrid
-    level of the three main paths."""
+    level of the three main paths, and at dd-north's tile shape (an
+    undecomposed channel of that shape: the kernels' work is the tile's;
+    ``scatter_v_bc`` also without its rows, as a tile launches it)."""
     out = {"cell_apply_F": {}, "scatter_v_bc": {}}
-    for mesh in chain_shapes(device):
-        for name, recs in time_shape(device, mesh, (3, 2)).items():
+    for mesh in chain_shapes(device) + [DD_NORTH_TILE]:
+        for name, recs in time_shape(device, mesh, (3, 2), raw=mesh == DD_NORTH_TILE).items():
             out[name].update(recs)
     return out
 
@@ -1631,8 +1785,8 @@ def phase_config3(device):
     s, run = unsteady_cli(device, CONFIG3_ARGV, "config3")
     if s.n_dofs != CONFIG3_DOFS:
         raise RuntimeError(f"config3: DoF count {s.n_dofs} != {CONFIG3_DOFS}")
-    if len(run["steps"]) != 3:
-        raise RuntimeError(f"config3 ran {len(run['steps'])} steps, not 3")
+    if len(run["steps"]) != CONFIG3_STEPS:
+        raise RuntimeError(f"config3 ran {len(run['steps'])} steps, not {CONFIG3_STEPS}")
     return s, run
 
 
@@ -2918,6 +3072,267 @@ def phase_native_io(state300, simplex3, msh_path):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# 35. dd-check, 36. dd-north
+# ---------------------------------------------------------------------------
+
+
+def dd_solver(device, mesh, degrees, Re, cfg, *, dd=None, consistent=True, tol=1e-9):
+    """One host unsteady step (``solve(direct=True)``) of ``mesh`` at the
+    given degrees: FGMRES basis 30, blockTriangular, ``cfg``; under ``dd``
+    this rank's tile (``device`` then a device per rank)."""
+    from navier_stokes_solver_tpu_torch.api import NSSolver, SolverOptions
+
+    return NSSolver(SolverOptions(
+        mesh_size=mesh, degree_velocity=degrees[0], degree_pressure=degrees[1], Re=Re, solver_type=1,
+        tolerance=tol, preconditioner_type=1, krylov_basis=30, time_step=UNSTEADY_DT, time_span=UNSTEADY_DT,
+        verbose=False, precond_config=cfg, consistent_continuity=consistent, device=device, dd=dd,
+    )).setup()
+
+
+def dd_step_run(device, mesh, degrees, Re, cfg, tol, dd=None):
+    """``dd_solver``'s step on this process (one rank of ``dd``, or alone):
+    the solver, and the wall, per-solve Krylov counts, Newton residual,
+    drag and lift, global fields, launches (counts zeroed just before the
+    step, read just after), and the rank's collectives."""
+    import torch
+
+    s = dd_solver(device, mesh, degrees, Re, cfg, dd=dd, tol=tol)
+    if s.mesh is not None:
+        for k in s.mesh.counts:
+            s.mesh.counts[k] = 0
+    reset_counts()
+    t0 = time.perf_counter()
+    s.solve(direct=True)
+    if s.device.type == "cuda":
+        torch.cuda.synchronize(s.device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    u, p = s.fields()
+    return s, {"wall_s": wall, "setup_s": s.setup_seconds, "krylov": [h["krylov_iters"] for h in solves_of(s)],
+               "newton_residual": s.newton_residual, "drag": s.drag_force, "lift": s.lift_force,
+               "u": u, "p": p, "counts": counts, "n_dofs": s.n_dofs,
+               "collectives": None if s.mesh is None else dict(s.mesh.counts)}
+
+
+def tile_kernel_checks(tile, dtype):
+    """``check_disc`` at every level of this rank's tile chain in
+    ``dtype`` (the dtype the step's multigrid launched the kernels in), on
+    the card, in step with the other ranks: {kernel: largest |kernel -
+    plain|, "shapes": the levels checked}.  Launches made here are not the
+    step's (its counts were read before)."""
+    err = {"cell_apply_F": 0.0, "scatter_v_bc": 0.0, "shapes": []}
+    d = tile.to(dtype)
+    while d is not None:
+        shape = f"tile ({d.halo_iy}, {d.halo_ix}) {d.nx}x{d.ny} Q{d.deg_v}/Q{d.deg_p} {str(dtype)[6:]}"
+        a, b = check_disc(*kernel_inputs(d), shape, log=lambda line: None)
+        err["cell_apply_F"], err["scatter_v_bc"] = max(err["cell_apply_F"], a), max(err["scatter_v_bc"], b)
+        err["shapes"].append(f"{d.nx}x{d.ny}")
+        d = None if d.mg is None else d.mg.coarse
+    return err
+
+
+def dd_step_rank(rank, devices, mesh, degrees, Re, cfg, tol, dd):
+    """One rank of ``dd_step_run`` under ``dd`` (spawned by
+    ``dist.launch``), then on its tile and process group: both kernels
+    against their plain versions at every level of the tile's chain in the
+    dtype the step's multigrid ran (``tile_kernel_checks``), and a seeded
+    global field (the same on every rank) through ``tile_blocks`` and back
+    through ``all_gather_blocks`` ("round_trip": True when every element
+    comes back bit for bit).  The global fields returned by rank 0 alone."""
+    import numpy as np
+    import torch
+
+    from navier_stokes_solver_tpu_torch.dist import all_gather_blocks, tile_blocks
+    from navier_stokes_solver_tpu_torch.ops import Blocks
+
+    s, out = dd_step_run(devices, mesh, degrees, Re, cfg, tol, dd)
+    if rank:
+        out["u"] = out["p"] = None
+    dtype = s.disc.dtype if cfg.mg_dtype is None else getattr(torch, cfg.mg_dtype)
+    out["tile_checks"] = tile_kernel_checks(s.disc, dtype)
+    g = np.random.default_rng(0)
+    (nx, ny), (kv, kp) = mesh, degrees
+    x = Blocks(torch.as_tensor(g.standard_normal((2, kv * ny + 1, kv * nx + 1))),
+               torch.as_tensor(g.standard_normal((kp * ny + 1, kp * nx + 1))))
+    back = all_gather_blocks(tile_blocks(x, s.disc), s.disc)
+    out["round_trip"] = all(np.array_equal(a, b.numpy()) for a, b in zip(back, x))
+    return out
+
+
+def print_tile_checks(tag, ranks):
+    """The tile kernel checks of every rank (``dd_step_rank``): their
+    largest errors, folded as ``phase_check``'s."""
+    errs = {k: max(r["tile_checks"][k] for r in ranks) for k in ("cell_apply_F", "scatter_v_bc")}
+    print(f"[{tag}] both kernels against their plain versions on every rank's tile, at every level of its chain "
+          f"{ranks[0]['tile_checks']['shapes']} (cell_apply_F Stokes and Newton, three entries, within "
+          f"{json.dumps(KERNEL_TOL)}; scatter_v_bc with and without bc_diag, seam sum and rows, bit for bit): "
+          f"max|kernel-plain| {json.dumps(errs)}")
+    return errs
+
+
+def dd_sweep_rank(rank, devices, mesh, nus, kw):
+    """``run_sweep(mesh=...)`` on an ``('ens',)`` mesh of len(devices) ranks
+    on the card: the gathered history and final fields, and the launches
+    (every rank's)."""
+    import torch
+
+    from navier_stokes_solver_tpu_torch.dist import make_mesh
+    from navier_stokes_solver_tpu_torch.ensemble import run_sweep
+
+    m = make_mesh(1, len(devices), devices=devices)
+    disc = ensemble_disc(m.device, mesh, torch.float64)
+    reset_counts()
+    final, hist = run_sweep(disc, nus, UNSTEADY_DT, 1, mesh=m, **kw)
+    if m.device.type == "cuda":
+        torch.cuda.synchronize(m.device)
+    return {"hist": {k: v.cpu().numpy() for k, v in hist.items()}, "counts": read_counts(),
+            "u": final.solution.u.cpu().numpy(), "p": final.solution.p.cpu().numpy()}
+
+
+def dd_reference_rank(rank, devices, args, nus, kw):
+    """dd-check's references on one rank (a spawned process, so that this
+    process's launch counters stay the other phases'): the step of
+    ``dd_step_run`` and the unsharded sweep."""
+    import torch
+
+    from navier_stokes_solver_tpu_torch.ensemble import run_sweep
+
+    device = torch.device(devices[0])
+    _, one = dd_step_run(device, *args)
+    final, hist = run_sweep(ensemble_disc(device, DD_CHECK_MESH, torch.float64), nus, UNSTEADY_DT, 1, **kw)
+    return one, {k: v.cpu().numpy() for k, v in hist.items()}, tuple(t.cpu().numpy() for t in final.solution)
+
+
+def dd_compare(tag, one, ranks, *, drag_tol, field_tol, newton=True):
+    """The decomposed step (``ranks``, rank 0's fields) against the one on
+    one rank: equal Newton counts (with ``newton``), Krylov totals within
+    1.1x + 5, drag within ``drag_tol``, fields within ``field_tol`` (None:
+    not compared); the launches of every rank summed (each kernel must have
+    launched on every rank)."""
+    import numpy as np
+
+    dd = ranks[0]
+    if newton and len(dd["krylov"]) != len(one["krylov"]):
+        raise RuntimeError(f"{tag}: {len(dd['krylov'])} Newton iterations against {len(one['krylov'])} on one rank")
+    if not sum(dd["krylov"]) <= 1.1 * sum(one["krylov"]) + 5:
+        raise RuntimeError(f"{tag}: Krylov total {sum(dd['krylov'])} > 1.1 x {sum(one['krylov'])} + 5")
+    gaps = {"drag": abs(dd["drag"] - one["drag"]), "lift": abs(dd["lift"] - one["lift"])}
+    if not gaps["drag"] <= drag_tol:
+        raise RuntimeError(f"{tag}: drag {dd['drag']!r} not within {drag_tol} of {one['drag']!r}")
+    if field_tol is not None:
+        gaps.update(u=float(np.abs(dd["u"] - one["u"]).max()), p=float(np.abs(dd["p"] - one["p"]).max()))
+        if not max(gaps["u"], gaps["p"]) <= field_tol:
+            raise RuntimeError(f"{tag}: fields {gaps['u']!r} / {gaps['p']!r} apart (> {field_tol})")
+    for r, rec in enumerate(ranks):
+        for name, c in rec["counts"].items():
+            if c["launches"] <= 0:
+                raise RuntimeError(f"{tag}: rank {r} never launched {name}")
+    return gaps, summed_counts(r["counts"] for r in ranks)
+
+
+def phase_dd_check(device):
+    """Domain decomposition on the card against one rank on the card:
+    ``DD_CHECK_MESH`` Q2/Q1 host unsteady steps (Re 100, tol 1e-10, all-f64
+    Cahouet-Chabard preconditioner with one Lp V-cycle, consistent sign)
+    under each of ``DD_CHECK_TILES``, ``run_sweep(mesh=...)`` with
+    ``DD_CHECK_NUS`` over two 'ens' ranks, and the tile round trips -- the
+    ranks share the one card under gloo (``dist.launch``, devices
+    ``cuda:0`` per rank; NCCL refuses two ranks on a card).  The three
+    decomposed runs go together, beside the one-rank references in a
+    process of their own (this process's launch counters stay the other
+    phases': ``main`` runs this phase beside the ``-M`` phases), each a
+    chain of device synchronizations and host round trips, not a
+    timing.  Gates: equal Newton counts, Krylov totals within 1.1x + 5,
+    drag within 1e-8, fields within 1e-7, round trips bit for bit, both
+    kernels launched on every rank."""
+    import numpy as np
+
+    from navier_stokes_solver_tpu_torch.dist import launch
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    card = nvidia_smi()
+    cfg = PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1, vmult_dtype=None, mg_dtype=None)
+    args = (DD_CHECK_MESH, (2, 1), 100.0, cfg, 1e-10)
+    kw = dict(solver_type=1, prec_type=1, tol=1e-9, newton_max=3, krylov_maxiter=200,
+              precond_cfg=PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1, vmult_dtype=None, mg_dtype=None))
+    devs = lambda n: [str(device)] * n
+
+    def tiles(dd):
+        n = dd[0] * dd[1]
+        t0 = time.perf_counter()
+        ranks = launch(dd_step_rank, n, devs(n), *args, dd)
+        return ranks, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(DD_CHECK_TILES) + 2) as ex:
+        runs = [ex.submit(tiles, dd) for dd in DD_CHECK_TILES]
+        sweep = ex.submit(launch, dd_sweep_rank, 2, devs(2), DD_CHECK_MESH, list(DD_CHECK_NUS), kw)
+        ref = ex.submit(launch, dd_reference_rank, 1, devs(1), args, list(DD_CHECK_NUS), kw)
+        runs = [r.result() for r in runs]
+        sweep = sweep.result()
+        one, ref_hist, ref_fields = ref.result()[0]
+    print(f"[dd-check] one rank: {DD_CHECK_MESH[0]}x{DD_CHECK_MESH[1]} Q2/Q1 host step, wall {one['wall_s']!r} s, Krylov per solve {one['krylov']}, drag {one['drag']!r}")
+    out = {"counts": [], "errs": {"cell_apply_F": 0.0, "scatter_v_bc": 0.0}}
+    for dd, (ranks, wall) in zip(DD_CHECK_TILES, runs):
+        n = dd[0] * dd[1]
+        gaps, counts = dd_compare(f"dd-check {dd}", one, ranks, drag_tol=1e-8, field_tol=1e-7)
+        if not all(r["round_trip"] for r in ranks):
+            raise RuntimeError(f"dd-check {dd}: the tile round trip on the card is not bit for bit")
+        for k, e in print_tile_checks(f"dd-check {dd[0]} x {dd[1]}", ranks).items():
+            out["errs"][k] = max(out["errs"][k], e)
+        print(f"[dd-check] {dd[0]} x {dd[1]} tiles ({n} ranks on {card}, gloo, beside the other decomposed runs): step wall {ranks[0]['wall_s']!r} s (launch wall {wall:.1f} s), Krylov per solve {ranks[0]['krylov']}, gaps {json.dumps(gaps)}, round trip bit for bit; rank 0's collectives {json.dumps(ranks[0]['collectives'])}; launches per rank {[{k: c['launches'] for k, c in r['counts'].items()} for r in ranks]}")
+        out["counts"].append(counts)
+    for r, rec in enumerate(sweep):
+        h = rec["hist"]
+        if not (np.array_equal(h["newton_iters"], ref_hist["newton_iters"])
+                and (h["krylov_iters"] <= 1.1 * ref_hist["krylov_iters"] + 5).all()
+                and np.abs(h["drag"] - ref_hist["drag"]).max() <= 1e-8
+                and max(np.abs(rec["u"] - ref_fields[0]).max(), np.abs(rec["p"] - ref_fields[1]).max()) <= 1e-7):
+            raise RuntimeError(f"dd-check: run_sweep(mesh=...) rank {r} does not match the unsharded sweep: {h} vs {ref_hist}")
+        for name, c in rec["counts"].items():
+            if c["launches"] <= 0:
+                raise RuntimeError(f"dd-check: sweep rank {r} never launched {name}")
+    print(f"[dd-check] run_sweep(mesh=...) B {len(DD_CHECK_NUS)} over 2 'ens' ranks: Newton {sweep[0]['hist']['newton_iters'].tolist()}, Krylov {sweep[0]['hist']['krylov_iters'].tolist()} (unsharded {ref_hist['krylov_iters'].tolist()}), drag gap {float(np.abs(sweep[0]['hist']['drag'] - ref_hist['drag']).max())!r}")
+    out["counts"].append(summed_counts(r["counts"] for r in sweep))
+    out["counts"] = summed_counts(out["counts"])
+    return out
+
+
+def phase_dd_north(device, unsteady):
+    """This slice's full-width path: phase 9's configuration (BASELINE's
+    north star, 300x100 Q3/Q2, 657,740 DoFs, Re 100, dt 0.01, one host
+    step, f32 Cahouet-Chabard with one Lp V-cycle, consistent sign) under
+    ``DD_NORTH_TILES`` -- four 150x50 tiles, four ranks sharing the card
+    under gloo -- held against phase 9's step (``unsteady``): Krylov total
+    within 1.1x + 5, drag within 1e-7, Newton residual <= 1e-9; its wall
+    (not a speedup: the ranks share one card and its host), the launches
+    per rank, the collectives per outer iteration and the seam bytes."""
+    from navier_stokes_solver_tpu_torch.dist import launch
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    card = nvidia_smi()
+    dd = DD_NORTH_TILES
+    n = dd[0] * dd[1]
+    cfg = PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1)
+    t0 = time.perf_counter()
+    ranks = launch(dd_step_rank, n, [str(device)] * n, UNSTEADY_MESH, (3, 2), 100.0, cfg, 1e-9, dd)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    if r0["n_dofs"] != UNSTEADY_DOFS:
+        raise RuntimeError(f"dd-north: DoF count {r0['n_dofs']} != {UNSTEADY_DOFS}")
+    if not r0["newton_residual"] <= 1e-9:
+        raise RuntimeError(f"dd-north: Newton residual {r0['newton_residual']!r} > 1e-9")
+    gaps, counts = dd_compare("dd-north", unsteady, ranks, drag_tol=1e-7, field_tol=None, newton=False)
+    outers = sum(r0["krylov"])
+    col = r0["collectives"]
+    print(f"[dd-north] {UNSTEADY_MESH[0]}x{UNSTEADY_MESH[1]} Q3/Q2 Re 100, {r0['n_dofs']} DoFs, {dd[0]} x {dd[1]} tiles of {UNSTEADY_MESH[0] // dd[0]}x{UNSTEADY_MESH[1] // dd[1]} ({n} ranks sharing {card}, gloo through the host: walls on one shared card are not a dd speedup): setup {r0['setup_s']:.3f} s, step wall {r0['wall_s']!r} s (launch wall {wall:.1f} s; one card, one rank: {unsteady['wall_s']!r} s), Krylov per solve {r0['krylov']} (one rank: {unsteady['krylov']}), Newton residual {r0['newton_residual']!r}, drag {r0['drag']!r} (gap {gaps['drag']!r}), lift gap {gaps['lift']!r}")
+    print(f"[dd-north] rank 0's collectives {json.dumps(col)}: per outer iteration {col['seam_exchanges'] / outers:.1f} seam exchanges, {col['all_reduces'] / outers:.1f} all-reduces, {col['seam_bytes'] / outers:.0f} seam bytes sent; launches per rank {[{k: c['launches'] for k, c in r['counts'].items()} for r in ranks]}")
+    if not all(r["round_trip"] for r in ranks):
+        raise RuntimeError("dd-north: the tile round trip on the card is not bit for bit")
+    errs = print_tile_checks("dd-north", ranks)
+    return {"wall_s": r0["wall_s"], "krylov": r0["krylov"], "counts": counts, "collectives": col, "errs": errs}
+
+
 def summed_counts(runs):
     """``read_counts`` records of several runs, the launches added."""
     out = {}
@@ -2932,13 +3347,14 @@ def summed_counts(runs):
 
 def kernel_line(errs, times, counts, counts_by_path):
     """The kernels of the slices' main paths: launches from this slice's
-    (config 5 with f32 GMRES-IR cycles, ensemble-ir) and times at its
-    finest level, batched over its B members, in the Stokes regime (the one
-    with a library yardstick); launches on every main path (0 on the
-    simplex ones, the ensemble's included), and times at every shape,
-    beside them."""
-    mesh = f"{ENSEMBLE_MESH[0]}x{ENSEMBLE_MESH[1]} Q2/Q1 float32 B{ENSEMBLE_B}"
-    main_tag = {"cell_apply_F": f"{mesh} stokes", "scatter_v_bc": f"{mesh} bc"}
+    (dd-north, the four ranks' summed) and times at its finest level (a
+    150x50 Q3/Q2 tile, f32: ``cell_apply_F`` in the Stokes regime, the one
+    with a library yardstick; ``scatter_v_bc`` without its boundary rows,
+    as a tile launches it); launches on every main path (0 on the simplex
+    ones, the ensemble's and the decomposed ones included), and times at
+    every shape, beside them."""
+    mesh = f"{DD_NORTH_TILE[0]}x{DD_NORTH_TILE[1]} Q3/Q2 float32"
+    main_tag = {"cell_apply_F": f"{mesh} stokes", "scatter_v_bc": f"{mesh} raw"}
     rows = []
     for name in ("cell_apply_F", "scatter_v_bc"):
         rec = times[name][main_tag[name]]
@@ -2984,13 +3400,16 @@ def main():
         f"phase 12's unsteady card-only entry dropped; fused-main {FUSED_MAIN_STEPS} of 2 steps; ensemble-matrix's "
         f"combinations in {ENSEMBLE_MATRIX_WORKERS} worker processes beside the card-vs-CPU phases; ensemble-matrix (a) "
         f"{ENSEMBLE_MATRIX_A_STEPS} of {ENSEMBLE_MATRIX_STEPS} steps; ensemble-simplex-lu B {ENSEMBLE_SIMPLEX_B} of 64 "
-        f"(its factors' memory). Not cut: "
+        f"(its factors' memory); config3 {CONFIG3_STEPS} of its 3 steps; ensemble-simplex-lu {ENSEMBLE_SIMPLEX_STEPS} "
+        f"of 3 steps. Not cut: "
         f"unsteady-check steps {CHECK_STEPS}, config 1, matrix at {MATRIX_MESH[0]}x{MATRIX_MESH[1]}, simplex check at "
-        f"-M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]}, fused check (3 and 2 steps), config3 its 3 steps, "
+        f"-M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]}, fused check (3 and 2 steps), "
         f"simplex-file one step, ensemble-main B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps, cavity-ghia at "
         f"{CAVITY_MESH[0]}x{CAVITY_MESH[1]}, ensemble-matrix B {ENSEMBLE_B}, {len(ENSEMBLE_MATRIX)} combinations, "
         f"{ENSEMBLE_MATRIX_STEPS} steps each but (a), ensemble-ir B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps, "
-        f"ensemble-simplex-lu {ENSEMBLE_SIMPLEX_STEPS} steps, ensemble-rest-check's four cases"
+        f"ensemble-rest-check's four cases, dd-check at {DD_CHECK_MESH[0]}x{DD_CHECK_MESH[1]} under "
+        f"{len(DD_CHECK_TILES)} tile grids, dd-north at {UNSTEADY_MESH[0]}x{UNSTEADY_MESH[1]} on "
+        f"{DD_NORTH_TILES[0]} x {DD_NORTH_TILES[1]} tiles"
     )
     phase_build()
     errs = phase_check(device)
@@ -3001,6 +3420,14 @@ def main():
             times[name].update(more_times[name])
     phase_launches(device)
     lap("kernel build, checks, timings, launches")
+    # the CPU sides of the card-vs-CPU phases start now, in three worker
+    # processes (six of the host's eight cores): they run beside the timed
+    # single-process paths below, each of which keeps one core and the card
+    pool = cpu_pool(3)
+    # the fourth to eighth CPU sides start when a worker is free
+    cpu = {name: pool.submit(cpu_job, name)
+           for name in ("unsteady-check", "matrix", "simplex-check", "fused-check", "ensemble-check",
+                        "ensemble-matrix-check", "cavity-check", "ensemble-rest-check")}
     s1, config1 = phase_config1(device)
     c1outer = phase_outer(s1, regimes=(True,), tag="config1-outer")
     print(f"[config1] setup {config1['setup_s']:.3f} s, solve wall {config1['wall_s']!r} s, {config1['outer']} outers; Stokes regime per outer iteration: {c1outer['stokes']['kernels']!r} device kernels, {c1outer['stokes']['device_ms']!r} device ms, {c1outer['stokes']['readbacks']!r} readbacks, busy {c1outer['stokes']['busy']:.4f}")
@@ -3017,6 +3444,9 @@ def main():
     del s
     lap("stationary bench solve")
     su, unsteady = phase_unsteady_main(device)
+    # dd-north's reference: phase 9's step, before fused-main moves the state
+    north_ref = {"wall_s": unsteady["wall_s"], "krylov": [h["krylov_iters"] for h in solves_of(su)],
+                 "drag": su.drag_force, "lift": su.lift_force}
     uouter = phase_outer(su, regimes=(False,), tag="unsteady-outer")
     print(f"[unsteady-main] per-step walls {[r['wall_s'] for r in unsteady['steps']]} s; outer iterations per step {[r['outer'] for r in unsteady['steps']]}; Newton regime per outer iteration: {uouter['newton']['kernels']!r} device kernels, {uouter['newton']['readbacks']!r} readbacks, busy {uouter['newton']['busy']:.4f}")
     fused_main = phase_fused_main(su)
@@ -3039,11 +3469,14 @@ def main():
     # and so do ensemble-matrix's combinations, on the card (a host-bound
     # path: the card idles most of the time under each of them)
     t_checks = time.perf_counter()
-    with cpu_pool(3) as pool, cpu_pool(ENSEMBLE_MATRIX_WORKERS) as card_pool:
-        # the fourth to seventh CPU sides start when a worker is free
-        cpu = {name: pool.submit(cpu_job, name)
-               for name in ("unsteady-check", "matrix", "simplex-check", "fused-check", "ensemble-check",
-                            "ensemble-matrix-check", "cavity-check", "ensemble-rest-check")}
+    # the decomposed phases, each a chain of device synchronizations and
+    # host round trips that leaves the host and the card mostly idle, run
+    # in threads beside other phases: dd-north beside the card-vs-CPU
+    # phases (and the -M phases, when it outlasts them), dd-check from
+    # their end beside the -M phases
+    dd_pool = concurrent.futures.ThreadPoolExecutor(2)
+    north_future = dd_pool.submit(phase_dd_north, device, north_ref)
+    with pool, cpu_pool(ENSEMBLE_MATRIX_WORKERS) as card_pool:
         matrix_runs = start_ensemble_matrix(card_pool)
         # four card sides, after the combinations, in the same two workers
         card = {name: card_pool.submit(card_job, name) for name in CARD_SIDES}
@@ -3068,6 +3501,8 @@ def main():
         matrix = phase_ensemble_matrix(device, matrix_runs)
         lap("ensemble-matrix (the wait for its workers after the card-vs-CPU phases)")
     print(f"[budget] ensemble-matrix and the card-vs-CPU phases (8, 12-14, 18, 22, 27, 29-31) {time.perf_counter() - t_checks:.1f} s")
+    # dd-check starts now, beside dd-north's last stretch and the -M phases
+    check_future = dd_pool.submit(phase_dd_check, device)
     s3, config3 = phase_config3(device)
     c3outer = phase_outer(s3, regimes=(False,), tag="config3-outer")
     print(f"[config3] setup {config3['setup_s']:.3f} s, per-step walls {[r['wall_s'] for r in config3['steps']]} s, Newton iterations per step {[r['newton_iterations'] for r in config3['steps']]}, outers per step {[r['outer'] for r in config3['steps']]}; Newton regime per outer iteration: {c3outer['newton']['kernels']!r} device kernels, {c3outer['newton']['device_ms']!r} device ms, {c3outer['newton']['wall_ms']!r} ms wall, {c3outer['newton']['readbacks']!r} readbacks, busy {c3outer['newton']['busy']:.4f}")
@@ -3084,6 +3519,14 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         _, simplex_file = phase_simplex_file(device, tmp)
         phase_native_io(state300, simplex3, os.path.join(tmp, "curved.msh"))
+    lap("simplex-file and native-io")
+    dd_north = north_future.result()
+    lap("dd-north (the wait for it after the card-vs-CPU and -M phases it ran beside)")
+    dd_check = check_future.result()
+    dd_pool.shutdown()
+    lap("dd-check (the wait for it after the -M phases it ran beside)")
+    for name in errs:
+        errs[name] = max(errs[name], dd_north["errs"][name], dd_check["errs"][name])
     counts_by_path = {
         "stationary": runs[0]["counts"], "unsteady": unsteady["counts"], "unsteady_fused": fused_main["counts"],
         "config1_blockdiag": config1["counts"], "simplex_config3": config3["counts"],
@@ -3092,12 +3535,15 @@ def main():
         "ensemble_matrix": summed_counts(c["counts"] for c in matrix.values()),
         "cavity_ghia": cavity["counts"], "cavity_cli": cavity_cli["counts"],
         "ensemble_ir": ensemble_ir["counts"], "ensemble_simplex_lu": simplex_lu["counts"],
+        "dd_north": dd_north["counts"], "dd_check": dd_check["counts"],
     }
-    print(kernel_line(errs, times, counts_by_path["ensemble_ir"], counts_by_path))
+    print(kernel_line(errs, times, counts_by_path["dd_north"], counts_by_path))
     print(f"[profile] {len(PROFILE_WINDOWS)} profiler windows: {sum(a for a, _ in PROFILE_WINDOWS)} traces taken "
           f"again; {sum(d > 0 for _, d in PROFILE_WINDOWS)} of the kept traces lost markers "
           f"({sum(d for _, d in PROFILE_WINDOWS)} in all)")
     print(f"[budget] script wall {time.perf_counter() - t_start:.1f} s")
+    left = stop_children()
+    print(f"[exit] processes still running after the last phase, now stopped: {json.dumps(left)}")
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -3107,4 +3553,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    adopt_orphans()
+    try:
+        main()
+    finally:
+        if left := stop_children():
+            print(f"[exit] processes still running when the script stopped, now stopped: {json.dumps(left)}", file=sys.stderr)

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from navier_stokes_solver_tpu_torch.api import kernels
+from navier_stokes_solver_tpu_torch.dist import all_gather_blocks, decompose_disc, make_dd_mesh
 from navier_stokes_solver_tpu_torch.geometry import (
     make_cavity_geometry,
     make_channel_geometry,
@@ -74,7 +75,8 @@ class SolverOptions:
     dtype: Any = None
     # where every tensor of the solve lives: the card unless the caller
     # asks for "cpu" (without a card, "cuda" fails in setup: no silent
-    # fallback)
+    # fallback).  Under ``dd``, "cuda" is ``cuda:{LOCAL_RANK}``, and a list
+    # gives each rank its device (ranks may then share a card, under gloo)
     device: Any = "cuda"
     verbose: bool = True
     write_output: bool = False  # VTU snapshots (output(); the reference writes always)
@@ -94,7 +96,12 @@ class SolverOptions:
     # search reject every update (see the JAX package's SolverOptions).
     skip_futile_stokes: bool = False
     precond_config: Any = None  # precond.PrecondConfig
-    dd: Any = None  # domain decomposition: not ported
+    # domain decomposition (x_tiles, y_tiles) (or an int: x-tiles): run on
+    # this rank's tile of an SPMD group of x_tiles * y_tiles ranks (the
+    # reference's ``mpiexec -n``, run_sim_steady.sh:24; ``dist/``); the
+    # process group must exist (``dist.launch``, or the CLI's ``--dd``).
+    # None = one device
+    dd: Any = None
     # -M: attach the dense inverses of the pressure mass and pressure
     # Laplacian (unstructured/dense.py; up to DENSE_SCHUR_MAX_NP pressure
     # nodes), so the Schur legs are one matrix-vector product each instead
@@ -115,9 +122,15 @@ class SolverOptions:
         if self.read_mesh_from_file and self.forcing is not None:
             raise ValueError("a body force is structured-path only (no -M)")
         if self.dd is not None:
-            raise NotImplementedError(
-                "domain decomposition is not ported yet (ROADMAP.md A.D9, dist/)"
-            )
+            n_x, n_y = dd_tiles(self.dd)
+            if n_x < 1 or n_y < 1:
+                raise ValueError(f"invalid dd {self.dd!r}")
+            if self.read_mesh_from_file:
+                raise NotImplementedError(
+                    "the -M simplex x-strips are not ported yet (ROADMAP.md A.D9b)"
+                )
+        elif isinstance(self.device, (list, tuple)):
+            raise ValueError("a device per rank needs dd")
         if self.solver_type not in (0, 1, 2):
             raise ValueError(f"invalid solver_type {self.solver_type!r}")
         if self.preconditioner_type not in (0, 1, 2):
@@ -125,6 +138,11 @@ class SolverOptions:
         if torch_dtype(self.dtype) not in (None, torch.float32, torch.float64):
             raise ValueError(f"unsupported dtype {self.dtype!r}")
         (self.precond_config or PrecondConfig()).check()
+
+
+def dd_tiles(dd) -> tuple[int, int]:
+    """``SolverOptions.dd`` as ``(x_tiles, y_tiles)``."""
+    return (int(dd), 1) if isinstance(dd, int) else tuple(int(n) for n in dd)
 
 
 def state_from_numpy(u, p, *, dtype: torch.dtype, device) -> Blocks:
@@ -178,7 +196,15 @@ class NSSolverBase:
             # unstructured P2/P1 simplex backend (NSSolver.cpp:144-209)
             options = dataclasses.replace(options, degree_velocity=2, degree_pressure=1)
         self.options = options
-        self.device = torch.device(options.device)
+        # this rank's place on the tile mesh under dd (dist.Mesh), else None
+        self.mesh = None
+        if options.dd is not None:
+            devs = options.device if isinstance(options.device, (list, tuple)) else None
+            self.mesh = make_dd_mesh(*dd_tiles(options.dd), devices=devs,
+                                     default="cuda" if devs else options.device)
+            self.device = self.mesh.device
+        else:
+            self.device = torch.device(options.device)
         self.dtype = torch_dtype(options.dtype) or torch.float64
         self.Re = options.Re
         self.nu: float = 0.01 if self.VARIANT == "unsteady" else 0.001
@@ -190,8 +216,14 @@ class NSSolverBase:
         self.timer = PhaseTimer(self.device)
 
     # ------------------------------------------------------------------
+    @property
+    def is_root(self) -> bool:
+        """True on the rank that logs and writes files (the only one
+        without dd)."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def log(self, *msg):
-        if self.options.verbose:
+        if self.options.verbose and self.is_root:
             print(*msg, flush=True)
 
     def setup(self):
@@ -210,9 +242,12 @@ class NSSolverBase:
             n_dofs_v, n_dofs_p = 2 * self.disc.n_nodes_v, self.disc.n_nodes_p
         else:
             self.space = make_fe_space(self.geo, o.degree_velocity, o.degree_pressure)
-            self.disc = make_disc(self.space, self.dtype, self.device, forcing=o.forcing)
-            if o.multigrid:
-                self.disc = attach_mg(self.disc, make_geometry)
+            if self.mesh is None:
+                self.disc = make_disc(self.space, self.dtype, self.device, forcing=o.forcing)
+                if o.multigrid:
+                    self.disc = attach_mg(self.disc, make_geometry)
+            else:
+                self.disc = self._tile_disc(make_geometry)
             n_el = self.geo.n_active_cells
             n_dofs_v, n_dofs_p = self.space.n_dofs_velocity, self.space.n_dofs_pressure
             if o.write_mesh:
@@ -245,6 +280,18 @@ class NSSolverBase:
             torch.cuda.synchronize(self.device)
         self.setup_seconds = _time.perf_counter() - t0
         return self
+
+    def _tile_disc(self, make_geometry):
+        """This rank's tile of the channel (``dist.decompose_disc``, with
+        its decomposed multigrid chain when ``multigrid``), on its device."""
+        o, m = self.options, self.mesh
+        glob = make_disc(self.space, self.dtype, "cpu", forcing=o.forcing)
+        disc = decompose_disc(
+            glob, m.n_x, m.n_y, m.iy, m.ix, mesh=m, device=self.device,
+            multigrid=o.multigrid, make_geometry=make_geometry,
+        )
+        self.log(f"  Domain decomposition: {m.n_x} x {m.n_y} tiles ({m.backend})")
+        return disc
 
     def _simplex_disc(self):
         """The -M disc: the gmsh file's triangles, or the triangulated
@@ -405,6 +452,8 @@ class NSSolverBase:
         (default ``options.output_dir``; NSSolver.cpp:976-1018)."""
         directory = directory or self.options.output_dir
         re = self.get_reynolds()
+        if not self.is_root:
+            return
         for name, value in (
             ("drag_coefficient", self.drag_coeff),
             ("lift_coefficient", self.lift_coeff),
@@ -416,20 +465,28 @@ class NSSolverBase:
         """VTU output (NSSolver.cpp:761-797) into ``options.output_dir`` when
         ``write_output`` is set: ``output_NNN.0.vtu`` and its ``.pvtu``
         record on the structured lattice, ``output_NNN.0.vtu`` of triangles
-        under ``-M`` (``NNN`` = ``time_step``, 0 by default)."""
+        under ``-M`` (``NNN`` = ``time_step``, 0 by default).  Under dd one
+        piece per tile with partitioning = tile id (the reference's
+        per-rank pieces, NSSolver.cpp:781-793), written by rank 0."""
         o = self.options
         if not o.write_output:
             return
         u, p = self.fields()
+        if not self.is_root:
+            return
         counter = time_step or 0
         if self.space is None:
             os.makedirs(o.output_dir, exist_ok=True)
             write_vtu_tri(self.disc, u, p, os.path.join(o.output_dir, f"output_{counter:03d}.0.vtu"))
         else:
-            write_vtu_record(self.space, u, p, directory=o.output_dir, counter=counter)
+            tiles = None if self.mesh is None else (self.mesh.n_x, self.mesh.n_y)
+            write_vtu_record(self.space, u, p, directory=o.output_dir, counter=counter, tiles=tiles)
 
     def fields(self) -> tuple[np.ndarray, np.ndarray]:
         """Host copies of (velocity, pressure): [2, NVy, NVx] and [NPy, NPx]
         on the structured lattice, [2, n_nodes_v] and [n_nodes_p] under
-        ``-M``."""
+        ``-M``.  Under dd the global fields on every rank, stitched from
+        the tiles (a collective)."""
+        if self.mesh is not None:
+            return tuple(all_gather_blocks(self.solution, self.disc))
         return self.solution.u.cpu().numpy(), self.solution.p.cpu().numpy()

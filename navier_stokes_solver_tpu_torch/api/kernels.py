@@ -21,8 +21,9 @@ from navier_stokes_solver_tpu_torch.krylov import (
     fgmres_batched,
     gmres,
     gmres_batched,
+    norm_of,
 )
-from navier_stokes_solver_tpu_torch.ops import Blocks, matfree, norm
+from navier_stokes_solver_tpu_torch.ops import Blocks, matfree
 from navier_stokes_solver_tpu_torch.ops.blocks import is_batched
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
 from navier_stokes_solver_tpu_torch.precond import (
@@ -57,7 +58,9 @@ def assemble_kernel(
         disc, nu, inv_dt, st, u_old, dF, stokes=stokes, inlet_amp=inlet_amp,
         consistent=consistent,
     )
-    return rhs, bnorm(rhs) if is_batched(nu) else norm(rhs)
+    if is_batched(nu):
+        return rhs, bnorm(rhs)
+    return rhs, norm_of(matfree.make_dot(disc))(rhs)
 
 
 def solve_kernel(
@@ -124,7 +127,7 @@ def solve_kernel(
         return _SOLVERS_BATCHED[solver_type](
             A, rhs, x0, tol=tol, maxiter=maxiter, M=M, active=active, **kw
         )
-    return _SOLVERS[solver_type](A, rhs, x0, tol=tol, maxiter=maxiter, M=M, **kw)
+    return _SOLVERS[solver_type](A, rhs, x0, tol=tol, maxiter=maxiter, M=M, dot=ctx.dot, **kw)
 
 
 def update_solution(evaluation_point: Blocks, delta: Blocks, alpha: float) -> Blocks:

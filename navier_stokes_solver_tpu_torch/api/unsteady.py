@@ -203,6 +203,11 @@ class NSSolver(NSSolverBase):
         package resumes the other's.  ``max_steps_this_call``: stop, with a
         checkpoint written, after this many steps; callers detect a partial
         run by ``self.time_step_index < round(T / dt)``.
+
+        Under dd every rank steps its tile (``make_time_step`` on the tile);
+        the state's scalars are all-reduced, the same on every rank, and
+        the checkpoint holds the tile-stacked slabs, written by rank 0 --
+        it resumes only into the same tile grid.
         """
         from navier_stokes_solver_tpu_torch.io import load_time_state, save_time_state
         from navier_stokes_solver_tpu_torch.timeloop import (
@@ -274,11 +279,14 @@ class NSSolver(NSSolverBase):
             def on_chunk(ts, out_host):
                 d, l, ni, ki = out_host
                 acc.extend([float(a), float(b), int(c), int(e)] for a, b, c, e in zip(d, l, ni, ki))
-                save_time_state(ts, checkpoint_dir)
-                tmp = os.path.join(checkpoint_dir, "history.json.tmp")
-                with open(tmp, "w") as f:
-                    json.dump(acc, f)
-                os.replace(tmp, os.path.join(checkpoint_dir, "history.json"))
+                save_time_state(ts, checkpoint_dir, disc=self.disc)  # a collective under dd
+                if self.is_root:
+                    tmp = os.path.join(checkpoint_dir, "history.json.tmp")
+                    with open(tmp, "w") as f:
+                        json.dump(acc, f)
+                    os.replace(tmp, os.path.join(checkpoint_dir, "history.json"))
+                if self.mesh is not None:  # no rank reads ahead of the history
+                    self.mesh.barrier()
 
         final, hist = run_time_loop(
             step, ts0, self.nu, o.time_step, todo, chunk=chunk_steps,

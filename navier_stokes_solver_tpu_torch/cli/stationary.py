@@ -7,19 +7,22 @@ import sys
 import time
 
 from navier_stokes_solver_tpu_torch.api import NSSolverStationary
-from navier_stokes_solver_tpu_torch.cli.common import echo_config, parse_options, profiled
+from navier_stokes_solver_tpu_torch.cli.common import echo_config, parse_options, profiled, run_ranks
 
 
-def run(argv) -> NSSolverStationary:
-    """Everything ``main`` does; returns the solver, with the wall of its
+def run(argv) -> NSSolverStationary | None:
+    """Everything ``main`` does; returns the solver (None where ``--dd``
+    spawned the ranks: each ran this in its own process), with the wall of its
     solve (setup excluded) in ``solve_seconds``."""
-    argv = list(argv)
+    orig, argv = list(argv), list(argv)
     # extension: skip the reference's Re-continuation ramp and Newton at
     # exactly nu = 1/Re (NSSolverStationary.solve_direct)
     direct = "--direct" in argv
     if direct:
         argv.remove("--direct")
     opts = parse_options(argv, unsteady=False)
+    if run_ranks("navier_stokes_solver_tpu_torch.cli.stationary", orig, opts):
+        return None
     echo_config(opts, unsteady=False)
     problem = NSSolverStationary(opts)
     problem.setup()
@@ -32,7 +35,7 @@ def run(argv) -> NSSolverStationary:
     problem.compute_lift_drag()
     problem.print_lift_coeff()
     problem.print_drag_coeff()
-    if opts.verbose:
+    if opts.verbose and problem.is_root:
         print("phase timings:", json.dumps(problem.timer.summary()))
     return problem
 

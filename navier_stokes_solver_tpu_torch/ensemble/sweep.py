@@ -9,6 +9,7 @@ import torch
 
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
 from navier_stokes_solver_tpu_torch.timeloop import TimeState, initial_state, make_batched_time_step
+from navier_stokes_solver_tpu_torch.timeloop.fused import _map_state
 from navier_stokes_solver_tpu_torch.unstructured.tri import SimplexDisc
 
 __all__ = ["make_ensemble_step", "initial_ensemble_state", "run_sweep"]
@@ -41,15 +42,22 @@ def run_sweep(disc: Disc | SimplexDisc, nus, dt, n_steps: int, mesh=None, **step
     Returns the final batched state and per-step [T, B] tensors on the
     disc's device: ``drag`` and ``lift`` (the JAX package's two) and, beyond
     them, ``newton_iters``, ``krylov_iters`` and ``final_residual``.
-    ``mesh`` (sharding the members over devices, the JAX package's ``'ens'``
-    axis) is not ported.
+
+    ``mesh``: a ``dist.make_mesh`` mesh with an ``'ens'`` axis (the JAX
+    package's member sharding; the reference runs one job per parameter,
+    run_sim_steady.sh): each ``ens`` rank steps its contiguous slice of the
+    members (B must divide by ``n_ens``), then the final state and the
+    [T, B] rows are all-gathered, so every rank returns the whole sweep.
+    The batched step masks each member's loops on its own, so a member's
+    result does not depend on the members that share its rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding the ensemble's members over a device mesh (the 'ens' axis) "
-            "is not ported (ROADMAP.md A.D9)"
-        )
     nus = as_viscosities(disc, nus)
+    sharded = mesh is not None and mesh.n_ens > 1
+    if sharded:
+        if nus.shape[0] % mesh.n_ens:
+            raise ValueError(f"{nus.shape[0]} members do not split over {mesh.n_ens} ens ranks")
+        b = nus.shape[0] // mesh.n_ens
+        nus = nus[mesh.ie * b: (mesh.ie + 1) * b]
     step = make_ensemble_step(disc, **step_kwargs)
     ts = initial_ensemble_state(disc, nus.shape[0])
     rows = []
@@ -58,6 +66,10 @@ def run_sweep(disc: Disc | SimplexDisc, nus, dt, n_steps: int, mesh=None, **step
         rows.append((ts.drag, ts.lift, *ts.stats))
     cols = zip(*rows) if rows else [[leaf] for leaf in (ts.drag, ts.lift, *ts.stats)]
     hist = {k: torch.stack(list(v))[: len(rows)] for k, v in zip(_HISTORY, cols)}
+    if sharded:
+        gather = lambda t, dim: torch.cat(mesh.all_gather(t, group=mesh.ens_group), dim=dim)
+        ts = _map_state(lambda t: gather(t, 0), ts)
+        hist = {k: gather(v, 1) for k, v in hist.items()}
     return ts, hist
 
 

@@ -13,6 +13,14 @@ temporary file and moved into place with ``os.replace``, so an interrupted
 save leaves the previous checkpoint readable; and a load checks the shape
 and dtype of every array against the run it resumes, not only the
 velocity's.
+
+Under domain decomposition (a tile ``Disc``, ``dist/``) both formats hold
+the JAX package's tile-stacked layout: every array gains a leading
+y-major tile axis ``[n_y * n_x, ...]`` (the scalars of a ``TimeState``
+too), gathered from the ranks; rank 0 writes, every rank reads its tile.
+A checkpoint resumes only into the same layout: a single-device one into
+a decomposed run, or the reverse, or another tile grid, fails the shape
+check.
 """
 
 from __future__ import annotations
@@ -60,8 +68,8 @@ def _load_npz(path: str, expect: dict) -> dict:
             if tuple(a.shape) != tuple(shape) or a.dtype != dtype:
                 raise ValueError(
                     f"checkpoint {path}: {key!r} is {a.dtype}{list(a.shape)} but this run "
-                    f"expects {np.dtype(dtype)}{list(shape)} -- mesh, backend or "
-                    "precision mismatch"
+                    f"expects {np.dtype(dtype)}{list(shape)} -- mesh, backend, "
+                    "precision or dd layout mismatch"
                 )
             out[key] = a
     return out
@@ -72,14 +80,54 @@ def _spec(t: torch.Tensor):
     return tuple(t.shape), np.dtype(str(t.dtype).removeprefix("torch."))
 
 
-def save_time_state(ts, path: str) -> str:
-    """Save a fused-loop ``TimeState`` to the directory ``path``."""
-    os.makedirs(path, exist_ok=True)
-    _save_npz(
-        os.path.join(path, "time_state.npz"),
-        dict(u=ts.solution.u, p=ts.solution.p, time=ts.time, step=ts.step,
-             drag=ts.drag, lift=ts.lift),
-    )
+def _tile_of(disc):
+    """The flat tile index of a decomposed disc, else None."""
+    if disc is None or not getattr(disc, "decomposed", False):
+        return None
+    return disc.halo_iy * disc.halo_n + disc.halo_ix
+
+
+def _write(disc, path: str, name: str, arrays: dict) -> bool:
+    """``arrays`` to ``path/name``: tile-stacked from every rank and written
+    by rank 0 under domain decomposition (a collective, ending when the
+    file is in place).  Returns whether this rank wrote."""
+    tiled = _tile_of(disc) is not None
+    if tiled:
+        arrays = {k: torch.stack(disc.mesh.all_gather(v)) for k, v in arrays.items()}
+    writer = not tiled or disc.mesh.rank == 0
+    if writer:
+        os.makedirs(path, exist_ok=True)
+        _save_npz(os.path.join(path, name), arrays)
+    return writer
+
+
+def _done(disc) -> None:
+    if _tile_of(disc) is not None:
+        disc.mesh.barrier()
+
+
+def _read(disc, file: str, arrays: dict) -> dict:
+    """The arrays of ``file`` with the shapes and dtypes of ``arrays``
+    (tile-stacked under domain decomposition, then this rank's tile)."""
+    i = _tile_of(disc)
+    if i is None:
+        return _load_npz(file, {k: _spec(v) for k, v in arrays.items()})
+    n = disc.halo_n * disc.halo_ny
+    expect = {}
+    for k, v in arrays.items():
+        shape, dtype = _spec(v)
+        expect[k] = ((n,) + shape, dtype)
+    return {k: a[i] for k, a in _load_npz(file, expect).items()}
+
+
+def save_time_state(ts, path: str, disc=None) -> str:
+    """Save a fused-loop ``TimeState`` to the directory ``path``; ``disc``:
+    the run's tile under domain decomposition (a collective over the
+    tiles)."""
+    arrays = dict(u=ts.solution.u, p=ts.solution.p, time=ts.time, step=ts.step,
+                  drag=ts.drag, lift=ts.lift)
+    _write(disc, path, "time_state.npz", arrays)
+    _done(disc)
     return path
 
 
@@ -88,14 +136,15 @@ def load_time_state(disc, path: str, template=None):
     package) onto ``disc``'s device.
 
     ``template``: the ``TimeState`` whose shapes and dtypes the checkpoint
-    must have; default ``initial_state(disc)``."""
+    must have; default ``initial_state(disc)``.  On a tile of a domain
+    decomposition the checkpoint is tile-stacked and this rank takes its
+    tile."""
     from navier_stokes_solver_tpu_torch.timeloop import initial_state
 
     ts = template if template is not None else initial_state(disc)
     fields = dict(u=ts.solution.u, p=ts.solution.p, time=ts.time, step=ts.step,
                   drag=ts.drag, lift=ts.lift)
-    data = _load_npz(os.path.join(path, "time_state.npz"),
-                     {k: _spec(v) for k, v in fields.items()})
+    data = _read(disc, os.path.join(path, "time_state.npz"), fields)
     put = lambda k: torch.as_tensor(data[k], device=disc.device)
     return ts._replace(
         solution=Blocks(u=put("u"), p=put("p")),
@@ -114,9 +163,11 @@ def _solver_arrays(solver) -> dict:
 
 
 def save_checkpoint(solver, path: str) -> str:
-    """Save a set-up solver's state to the directory ``path``."""
-    os.makedirs(path, exist_ok=True)
-    _save_npz(os.path.join(path, "state.npz"), _solver_arrays(solver))
+    """Save a set-up solver's state to the directory ``path`` (under domain
+    decomposition a collective of its ranks, tile-stacked)."""
+    if not _write(solver.disc, path, "state.npz", _solver_arrays(solver)):
+        _done(solver.disc)
+        return path
     manifest = {
         "format_version": _FORMAT_VERSION,
         "variant": solver.VARIANT,
@@ -133,6 +184,7 @@ def save_checkpoint(solver, path: str) -> str:
     with open(tmp, "w") as f:
         json.dump(manifest, f, indent=2)
     os.replace(tmp, os.path.join(path, "manifest.json"))
+    _done(solver.disc)
     return path
 
 
@@ -148,8 +200,7 @@ def load_checkpoint(solver, path: str) -> dict:
             f"checkpoint mesh {manifest['mesh_size']} != solver mesh "
             f"{list(solver.options.mesh_size)}"
         )
-    data = _load_npz(os.path.join(path, "state.npz"),
-                     {k: _spec(v) for k, v in _solver_arrays(solver).items()})
+    data = _read(solver.disc, os.path.join(path, "state.npz"), _solver_arrays(solver))
     put = lambda k: torch.as_tensor(data[k], device=solver.device)
     solver.solution = Blocks(u=put("u"), p=put("p"))
     solver.solution_old = Blocks(u=put("u_old"), p=put("p_old"))

@@ -15,7 +15,7 @@ writer leaves that last newline out, so its files differ by one byte with
 and without its native library.)  Triangle pieces (the ``-M`` backend)
 always use the Python writer, as in the JAX package, with no final
 newline.  ``write_vtu_tri_record`` (a decomposed simplex) waits for the
-port of ``dist/`` (ROADMAP.md A.D9).
+port of the ``-M`` x-strips (ROADMAP.md A.D9b).
 """
 
 from __future__ import annotations

@@ -10,6 +10,7 @@ from navier_stokes_solver_tpu_torch.krylov.solvers import (
     cg,
     fgmres,
     gmres,
+    norm_of,
     tnorm,
     tvdot,
 )
@@ -23,6 +24,6 @@ from navier_stokes_solver_tpu_torch.krylov.batched import (
 )
 
 __all__ = [
-    "gmres", "fgmres", "bicgstab", "cg", "tvdot", "tnorm", "SolveInfo", "LowCycle",
+    "gmres", "fgmres", "bicgstab", "cg", "tvdot", "tnorm", "norm_of", "SolveInfo", "LowCycle",
     "gmres_batched", "fgmres_batched", "bicgstab_batched", "cg_batched", "bvdot", "bnorm",
 ]

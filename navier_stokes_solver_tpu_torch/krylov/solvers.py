@@ -21,6 +21,13 @@ run on the host in NumPy, in the cycle's working precision.
 
 Operators and preconditioners are callables ``x -> y`` over a tensor or a
 tuple of tensors (``Blocks``).
+
+``dot``: the inner product, ``tvdot`` by default.  On a tile of a domain
+decomposition it is a ``WeightedDot`` (``ops.matfree.make_dot``): the
+seam nodes weigh 1/2 per sharing tile and the tile sums are all-reduced,
+so every rank reads the same scalars and takes the same branches.  CGS2
+then stays one product per pass: the new vector is weighted, multiplied
+against the stacked basis, and the [j+1] column reduced in one call.
 """
 
 from __future__ import annotations
@@ -31,7 +38,9 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["SolveInfo", "LowCycle", "gmres", "fgmres", "bicgstab", "cg", "tvdot", "tnorm"]
+__all__ = [
+    "SolveInfo", "LowCycle", "WeightedDot", "gmres", "fgmres", "bicgstab", "cg", "tvdot", "tnorm",
+]
 
 Op = Callable
 
@@ -110,6 +119,46 @@ def _identity(x):
     return x
 
 
+class WeightedDot:
+    """The inner product of tile-local vectors: per leaf
+    ``sum(a * b * w)`` with the leaf's node weights ``w`` (chosen by its
+    last extent: ``weights`` maps it to an [NY, NX] tensor), the leaves
+    added, then ``reduce`` (the sum over the tiles)."""
+
+    def __init__(self, weights: dict, reduce: Callable):
+        self._w = dict(weights)
+        self._cast = {}
+        self.reduce = reduce
+
+    def weight(self, leaf: torch.Tensor) -> torch.Tensor:
+        key = (leaf.shape[-1], leaf.dtype)
+        if key not in self._cast:
+            self._cast[key] = self._w[leaf.shape[-1]].to(leaf.dtype)
+        return self._cast[key]
+
+    def local(self, x, y) -> torch.Tensor:
+        """This tile's weighted sum, not reduced."""
+        return _sum([torch.sum(a * b * self.weight(a)) for a, b in zip(_leaves(x), _leaves(y))])
+
+    def __call__(self, x, y) -> torch.Tensor:
+        return self.reduce(self.local(x, y))
+
+    def pairs(self, *pairs) -> torch.Tensor:
+        """The products of several ``(x, y)`` pairs in one reduction (the
+        same bits as one reduction each)."""
+        return self.reduce(torch.stack([self.local(x, y) for x, y in pairs]))
+
+    def flat_weights(self, x) -> list:
+        """Each leaf's weights broadcast to its shape and flattened."""
+        return [self.weight(l).expand(l.shape).reshape(-1) for l in _leaves(x)]
+
+
+def norm_of(dot):
+    """The norm of ``dot``'s inner product (``tnorm`` for None, the plain
+    product)."""
+    return tnorm if dot is None else (lambda x: torch.sqrt(dot(x, x)))
+
+
 def _cast(x, dtype):
     return _map(lambda a: a.to(dtype), x)
 
@@ -149,7 +198,7 @@ def _back_substitute(R, g, j):
 
 
 def _arnoldi_cycle(
-    r, beta, beta_w, tol_w, iters, maxiter, basis, flexible, matvec, M, init_done
+    r, beta, beta_w, tol_w, iters, maxiter, basis, flexible, matvec, M, init_done, dot=None
 ):
     """One restart cycle in the working precision of ``r``.
 
@@ -174,6 +223,7 @@ def _arnoldi_cycle(
     g = np.zeros(basis + 1, wd)
     g[0] = beta_w
     j, res, done = 0, beta_w, init_done
+    fw = None if dot is None else dot.flat_weights(r)
 
     while not done and j < basis and iters < maxiter:
         vj = _pack(r, [Vl[j] for Vl in V])
@@ -190,10 +240,16 @@ def _arnoldi_cycle(
         # (classical Gram-Schmidt with reorthogonalization).
         col_d = None
         for _ in range(2):
-            h = _sum([Vfl @ l for Vfl, l in zip(Vf, wl)])
+            if dot is None:
+                h = _sum([Vfl @ l for Vfl, l in zip(Vf, wl)])
+            else:  # one side weighted, one reduction of the column
+                h = dot.reduce(_sum([Vfl @ (l * f) for Vfl, l, f in zip(Vf, wl, fw)]))
             wl = [l - h @ Vfl for Vfl, l in zip(Vf, wl)]
             col_d = h if col_d is None else col_d + h
-        hj1 = torch.sqrt(_sum([torch.dot(l, l) for l in wl]))
+        if dot is None:
+            hj1 = torch.sqrt(_sum([torch.dot(l, l) for l in wl]))
+        else:
+            hj1 = torch.sqrt(dot.reduce(_sum([torch.dot(l * f, l) for l, f in zip(wl, fw)])))
         inv = 1.0 / torch.clamp_min(hj1, _EPS_BREAKDOWN)
         for Vl, l in zip(V, wl):
             Vl[j + 1] = (inv * l).reshape(Vl.shape[1:])
@@ -230,6 +286,7 @@ def _gmres_core(
     basis: int,
     flexible: bool,
     lo: LowCycle | None = None,
+    dot=None,
 ):
     """Shared GMRES/FGMRES implementation with restarts and Givens updates.
 
@@ -239,6 +296,7 @@ def _gmres_core(
     """
     M = M or _identity
     tol = float(tol)
+    nrm = norm_of(dot)
     hi = _leaves(b)[0].dtype
     if lo is not None:
         wd = lo.dtype or torch.float32
@@ -259,7 +317,7 @@ def _gmres_core(
     def cycle(r, beta, beta_h, tol_w, iters, init_done):
         return _arnoldi_cycle(
             r, beta, wd_np(beta_h), tol_w, iters, maxiter, basis, flexible,
-            w_mv, w_M, init_done,
+            w_mv, w_M, init_done, dot,
         )
 
     x = x0
@@ -268,7 +326,7 @@ def _gmres_core(
         # ---- full-precision restarted GMRES (reference semantics) ----
         tol_w = wd_np(tol)
         r = initial_residual(x0)
-        beta = tnorm(r)
+        beta = nrm(r)
         beta_h = float(beta)
         res, done = beta_h, beta_h <= tol  # deal.II SolverControl step 0
         while not done and iters < maxiter:
@@ -276,7 +334,7 @@ def _gmres_core(
             x = add_corr(x, corr)
             if not done and iters < maxiter:  # restart from the true residual
                 r = initial_residual(x)
-                beta = tnorm(r)
+                beta = nrm(r)
                 beta_h = float(beta)
         res = float(res)
         finite = math.isfinite(res)
@@ -289,7 +347,7 @@ def _gmres_core(
     done = False
     while not done and iters < maxiter:
         r_hi = initial_residual(x)
-        beta_hi = tnorm(r_hi)
+        beta_hi = nrm(r_hi)
         bh = float(beta_hi)
         finite = math.isfinite(bh)
         # stop before the cycle when converged, broken down, or when the
@@ -311,19 +369,19 @@ def _gmres_core(
     return x, SolveInfo(iters, done and finite and res <= tol, res, not finite)
 
 
-def gmres(matvec, b, x0, *, tol, maxiter=1000, M=None, basis=30, lo=None):
+def gmres(matvec, b, x0, *, tol, maxiter=1000, M=None, basis=30, lo=None, dot=None):
     """Left-preconditioned restarted GMRES (deal.II ``SolverGMRES``)."""
     return _gmres_core(
         matvec, b, x0, tol=tol, maxiter=maxiter, M=M, basis=basis,
-        flexible=False, lo=lo,
+        flexible=False, lo=lo, dot=dot,
     )
 
 
-def fgmres(matvec, b, x0, *, tol, maxiter=1000, M=None, basis=30, lo=None):
+def fgmres(matvec, b, x0, *, tol, maxiter=1000, M=None, basis=30, lo=None, dot=None):
     """Flexible (right-preconditioned) GMRES (deal.II ``SolverFGMRES``)."""
     return _gmres_core(
         matvec, b, x0, tol=tol, maxiter=maxiter, M=M, basis=basis,
-        flexible=True, lo=lo,
+        flexible=True, lo=lo, dot=dot,
     )
 
 
@@ -332,7 +390,7 @@ def fgmres(matvec, b, x0, *, tol, maxiter=1000, M=None, basis=30, lo=None):
 # ---------------------------------------------------------------------------
 
 
-def bicgstab(matvec, b, x0, *, tol, maxiter=1000, M=None):
+def bicgstab(matvec, b, x0, *, tol, maxiter=1000, M=None, dot=None):
     """Preconditioned BiCGStab (deal.II ``SolverBicgstab``), in the JAX
     package's order of operations.
 
@@ -344,33 +402,34 @@ def bicgstab(matvec, b, x0, *, tol, maxiter=1000, M=None):
     """
     M = M or _identity
     tol = float(tol)
+    vdot, nrm = dot or tvdot, norm_of(dot)
     scale = lambda a, x: _map(lambda xi: a * xi, x)
     r = _map(torch.sub, b, matvec(x0))
     rbar = r
-    res = float(tnorm(r))
+    res = float(nrm(r))
     x = x0
     p = v = _map(torch.zeros_like, r)
     one = torch.ones((), dtype=_leaves(r)[0].dtype, device=_leaves(r)[0].device)
     rho = alpha = omega = one
     it, done, failed = 0, res <= tol, False
     while not done and not failed and it < maxiter:
-        rho_new = tvdot(rbar, r)
+        rho_new = vdot(rbar, r)
         beta = (rho_new / rho) * (alpha / omega)
         p_new = _map(lambda pi, vi, ri: beta * (pi - omega * vi) + ri, p, v, r)
         y = M(p_new)
         v_new = matvec(y)
-        denom = tvdot(rbar, v_new)
+        denom = vdot(rbar, v_new)
         alpha_new = rho_new / denom
         s = _map(lambda ri, vi: ri - alpha_new * vi, r, v_new)
         z = M(s)
         t = matvec(z)
-        tt = tvdot(t, t)
-        omega_new = tvdot(t, s) / tt
+        tt = vdot(t, t)
+        omega_new = vdot(t, s) / tt
         x_new = _map(torch.add, x, _map(torch.add, scale(alpha_new, y), scale(omega_new, z)))
         r_new = _map(lambda si, ti: si - omega_new * ti, s, t)
         # the one host readback of this iteration
         rho_h, denom_h, tt_h, res_new = torch.stack(
-            [rho_new, denom, tt, tnorm(r_new)]
+            [rho_new, denom, tt, nrm(r_new)]
         ).tolist()
         it += 1
         failed = (
@@ -392,24 +451,40 @@ def bicgstab(matvec, b, x0, *, tol, maxiter=1000, M=None):
 # ---------------------------------------------------------------------------
 
 
-def cg(matvec, b, x0, *, tol, maxiter=1000, M=None):
-    """Preconditioned CG (deal.II ``SolverCG``), true-residual check."""
+def cg(matvec, b, x0, *, tol, maxiter=1000, M=None, dot=None):
+    """Preconditioned CG (deal.II ``SolverCG``), true-residual check.
+
+    With a tile's ``WeightedDot`` the residual norm and the next <r, z>
+    share one reduction (z is then formed before the convergence test: an
+    unused preconditioner application at the last step, the same iterates
+    and counts)."""
     M = M or _identity
     tol = float(tol)
+    vdot = dot or tvdot
     axpy = lambda a, x, y: _map(lambda xi, yi: a * xi + yi, x, y)
+
+    def measure(r):
+        """``||r||`` (a tensor) and a thunk for ``(M r, <r, M r>)``."""
+        if dot is None:
+            return tnorm(r), lambda: (lambda z: (z, tvdot(r, z)))(M(r))
+        z = M(r)
+        rr, rz = dot.pairs((r, r), (r, z))
+        return torch.sqrt(rr), lambda: (z, rz)
+
     r = _map(torch.sub, b, matvec(x0))
-    res = float(tnorm(r))
-    z = M(r)
-    rz = tvdot(r, z)
+    res_t, direction = measure(r)
+    res = float(res_t)
+    z, rz = direction()
     x, d = x0, z
     it, done, failed = 0, res <= tol, False
     while not done and not failed and it < maxiter:
         q = matvec(d)
-        dq = tvdot(d, q)
+        dq = vdot(d, q)
         alpha = rz / dq
         x_new = axpy(alpha, d, x)
         r_new = axpy(-alpha, q, r)
-        res_new, dq_h = torch.stack([tnorm(r_new), dq]).tolist()
+        res_t, direction = measure(r_new)
+        res_new, dq_h = torch.stack([res_t, dq]).tolist()
         it += 1
         # breakdown guard: on a vanishing curvature or non-finite update,
         # keep the previous iterate (best achievable) and stop
@@ -420,8 +495,7 @@ def cg(matvec, b, x0, *, tol, maxiter=1000, M=None):
         done = res <= tol
         if done:
             break
-        z = M(r)
-        rz_new = tvdot(r, z)
+        z, rz_new = direction()
         d = axpy(rz_new / rz, d, z)
         rz = rz_new
     return x, SolveInfo(it, done, res, failed)

@@ -6,6 +6,13 @@ tables already lowered to tensors in the working dtype on the disc's device
 (PyTorch runs eagerly, so the tables are built once, by ``make_disc``,
 instead of being folded into every call).  ``Disc.to(dtype)`` casts the
 floating tensors -- including the multigrid chain -- to another precision.
+
+Domain decomposition (``dist/``): a Disc with ``halo_n * halo_ny > 1``
+is one tile of an ``halo_n x halo_ny`` split of the channel, at tile
+coordinates ``(halo_iy, halo_ix)``; its lattices duplicate the seam
+columns and rows it shares with its neighbours, and ``mesh`` (a
+``dist.Mesh``) carries the seam exchanges and reductions its operators
+issue.
 """
 
 from __future__ import annotations
@@ -71,6 +78,19 @@ class Disc:
     # every residual; None without a force (make_disc's ``forcing``)
     forcing_rhs: torch.Tensor | None = None  # [2, NVy, NVx] dtype
 
+    # Domain decomposition (the JAX package's halo fields): the tile grid,
+    # this tile's place on it, and the rank mesh of its collectives (None
+    # for a tile built without a process group, e.g. to compare tiles)
+    halo_n: int = 1
+    halo_ny: int = 1
+    halo_ix: int = 0
+    halo_iy: int = 0
+    mesh: object = None
+
+    @property
+    def decomposed(self) -> bool:
+        return self.halo_n * self.halo_ny > 1
+
     @property
     def dtype(self) -> torch.dtype:
         return self.cell_mask.dtype
@@ -96,10 +116,38 @@ class Disc:
     @functools.cached_property
     def p_outlet(self) -> torch.Tensor:
         """Existing pressure-lattice nodes on the outlet boundary (id 8,
-        x = 2.2)."""
+        x = 2.2); on a tile, only the rightmost tiles own the outlet."""
         NPy, NPx = self.NP
         col = torch.arange(NPx, device=self.device) == NPx - 1
+        if self.halo_ix != self.halo_n - 1:
+            col = torch.zeros_like(col)
         return col[None, :].expand(NPy, NPx) & self.p_active
+
+    def seam_weights(self, k: int) -> torch.Tensor | None:
+        """[NY, NX] inner-product weights of a degree-``k`` tile lattice:
+        a seam column or row shared with a neighbour weighs 1/2 (a corner
+        of four tiles 1/4, exactly), every other node 1; None when the disc
+        is not decomposed."""
+        if not self.decomposed:
+            return None
+        return self._seam_weights[k]
+
+    @functools.cached_property
+    def _seam_weights(self) -> dict:
+        def axis(n_nodes, i, n):
+            w = torch.ones(n_nodes, dtype=self.dtype, device=self.device)
+            if i > 0:
+                w[0] = 0.5
+            if i < n - 1:
+                w[-1] = 0.5
+            return w
+
+        out = {}
+        for k in (self.deg_v, self.deg_p):
+            wy = axis(k * self.ny + 1, self.halo_iy, self.halo_ny)
+            wx = axis(k * self.nx + 1, self.halo_ix, self.halo_n)
+            out[k] = wy[:, None] * wx[None, :]
+        return out
 
     @functools.cached_property
     def p_free(self) -> torch.Tensor:
@@ -281,6 +329,8 @@ def disc_from_numpy(
     *,
     device: torch.device | str,
     dtype: torch.dtype | None = None,
+    tile: int | None = None,
+    mesh=None,
 ) -> Disc:
     """Build a ``Disc`` from the JAX package's ``Disc`` fields as a dict of
     Python scalars and numpy arrays (``{name: np.asarray(value)}``).
@@ -288,22 +338,28 @@ def disc_from_numpy(
     ``leaves["mg"]``, when present and not None, is the same kind of dict
     for the JAX ``MGEdge`` (its ``coarse`` a nested Disc dict), so a test
     can carry the exact reference hierarchy across, and
-    ``leaves["forcing_rhs"]`` the body force's rhs.  The
-    domain-decomposition halo settings must be unset.
+    ``leaves["forcing_rhs"]`` the body force's rhs.
+
+    A decomposed JAX disc (``dist.decompose_disc``: halo settings set,
+    every array stacked on a leading y-major tile axis) gives its tile
+    ``tile``: each array, the MG chain's included, is taken at that index,
+    and ``mesh`` (a ``dist.Mesh``, or None) carries the tile's
+    collectives.
     """
-    if leaves.get("halo_axis") is not None or leaves.get("halo_axis_y") is not None:
-        raise NotImplementedError(
-            "decomposed discs are not ported yet (ROADMAP.md A.D9, dist/)"
-        )
+    halo_n = int(leaves.get("halo_n", 1)) if leaves.get("halo_axis") is not None else 1
+    halo_ny = int(leaves.get("halo_ny", 1)) if leaves.get("halo_axis_y") is not None else 1
+    if halo_n * halo_ny > 1 and tile is None:
+        raise ValueError("disc_from_numpy: a decomposed disc needs the tile index")
+    pick = (lambda a: np.asarray(a)) if halo_n * halo_ny == 1 else (lambda a: np.asarray(a)[tile])
     if dtype is None:
         dtype = torch.float64 if np.asarray(leaves["cell_mask"]).dtype == np.float64 else torch.float32
-    fl = lambda a: torch.as_tensor(np.array(a), device=device).to(dtype)
-    bl = lambda a: torch.as_tensor(np.array(a, bool), device=device)
+    fl = lambda a: torch.as_tensor(np.array(pick(a)), device=device).to(dtype)
+    bl = lambda a: torch.as_tensor(np.array(pick(a), bool), device=device)
     mg = leaves.get("mg")
     edge = None
     if mg is not None:
         edge = MGEdge(
-            coarse=disc_from_numpy(mg["coarse"], device=device, dtype=dtype),
+            coarse=disc_from_numpy(mg["coarse"], device=device, dtype=dtype, tile=tile, mesh=mesh),
             **{k: fl(mg[k]) for k in _EDGE_FIELDS},
         )
     deg = tuple(int(leaves[k]) for k in ("deg_v", "deg_p", "n_q1d"))
@@ -320,6 +376,11 @@ def disc_from_numpy(
         hy=hy,
         mg=edge,
         forcing_rhs=None if forcing is None else fl(forcing),
+        halo_n=halo_n,
+        halo_ny=halo_ny,
+        halo_ix=0 if tile is None else tile % halo_n,
+        halo_iy=0 if tile is None else tile // halo_n,
+        mesh=mesh,
         **floats,
         **{k: bl(leaves[k]) for k in _BOOL_FIELDS},
         **_element_fields(make_taylor_hood(*deg), hx, hy, floats["cell_mask"]),

@@ -6,6 +6,10 @@ gather is one strided view and one copy; the scatter is the JAX package's
 ordered sum, bit for bit.  The velocity block's kernels read the strided
 view (``ops/cell_kernel.py``) and do the ordered sum
 (``ops/scatter_kernel.py``) themselves on the card.
+
+On a tile of a domain decomposition (``Disc.decomposed``) the scatters
+end with the seam exchange (``_seam_sum``): a tile's cells give only
+their part of a seam node's sum, and the neighbour tiles add theirs.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ __all__ = [
     "_gather_p",
     "_scatter_v",
     "_scatter_p",
+    "_seam_sum",
 ]
 
 
@@ -95,9 +100,21 @@ def _gather_p(disc: Disc, p: torch.Tensor) -> torch.Tensor:
     return _gather(p, disc.deg_p, disc.ny, disc.nx)  # [n_p, ny, nx]
 
 
+def _seam_sum(disc: Disc, y: torch.Tensor) -> torch.Tensor:
+    """Complete the seam nodes' partial sums of a tile's lattice tensor
+    ``y`` [..., NY, NX] with the neighbour tiles' (``dist.Mesh.seam_sum``:
+    the x-exchange, then the y-exchange); ``y`` itself on a disc that is
+    not decomposed."""
+    if not disc.decomposed:
+        return y
+    if disc.mesh is None:
+        raise ValueError("a tile built without a process mesh cannot exchange its seams")
+    return disc.mesh.seam_sum(y)
+
+
 def _scatter_v(disc: Disc, loc: torch.Tensor) -> torch.Tensor:
-    return _scatter(loc, disc.deg_v, disc.ny, disc.nx)
+    return _seam_sum(disc, _scatter(loc, disc.deg_v, disc.ny, disc.nx))
 
 
 def _scatter_p(disc: Disc, loc: torch.Tensor) -> torch.Tensor:
-    return _scatter(loc, disc.deg_p, disc.ny, disc.nx)
+    return _seam_sum(disc, _scatter(loc, disc.deg_p, disc.ny, disc.nx))

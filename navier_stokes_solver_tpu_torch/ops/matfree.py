@@ -33,6 +33,11 @@ and cell-local tensors with the member axis after their leading q or
 local-DoF axis ([n_q, B, ...]), and ``nu`` a [B] tensor.  The geometry,
 masks and tables are shared; ``dirichlet_values`` and ``diag_Lp`` do not
 depend on the member.  A member's arithmetic is the unbatched call's.
+
+Domain decomposition (``dist/``).  On a tile (``Disc.decomposed``) every
+scatter ends with the seam exchange (``ops.lattice._seam_sum``), inner
+products weigh the seams (``make_dot``), only the rightmost tiles own the
+outlet (``Disc.p_outlet``) and lift and drag are summed over the tiles.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from typing import NamedTuple
 
 import torch
 
+from navier_stokes_solver_tpu_torch.krylov.solvers import WeightedDot
 from navier_stokes_solver_tpu_torch.ops.blocks import Blocks, is_batched, per_member
 from navier_stokes_solver_tpu_torch.ops.cell_kernel import cell_apply_F_lattice
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
@@ -74,6 +80,7 @@ __all__ = [
     "lift_drag_forces",
     "make_apply_F",
     "make_apply_jacobian",
+    "make_dot",
 ]
 
 # the member axis of an ensemble's linearization: after the quadrature axis
@@ -545,4 +552,21 @@ def lift_drag_forces(disc: Disc, nu, st: Blocks) -> tuple[torch.Tensor, torch.Te
         force = -torch.einsum("q...cdyx,d,q->...cyx", sig, n, wf)
         drag = drag + cells(force[..., 0, :, :] * mask)
         lift = lift + cells(force[..., 1, :, :] * mask)
+    if disc.decomposed:
+        # every cylinder face lies in one tile: the sum over the tiles
+        # (Utilities::MPI::sum, NSSolver.cpp:933-934)
+        drag, lift = disc.mesh.all_reduce(torch.stack([drag, lift])).unbind(0)
     return drag, lift
+
+
+def make_dot(disc) -> WeightedDot | None:
+    """The inner product of a tile's vectors: the seam nodes weighted 1/2
+    per sharing tile (corners 1/4, exactly), the tile sums all-reduced (the
+    Trilinos dot-product allreduce); None (the plain ``tvdot``) on any
+    other disc (not decomposed, or not a lattice)."""
+    if not isinstance(disc, Disc) or not disc.decomposed:
+        return None
+    if disc.mesh is None:
+        raise ValueError("a tile built without a process mesh cannot reduce its products")
+    wv, wp = disc.seam_weights(disc.deg_v), disc.seam_weights(disc.deg_p)
+    return WeightedDot({wv.shape[-1]: wv, wp.shape[-1]: wp}, disc.mesh.all_reduce)

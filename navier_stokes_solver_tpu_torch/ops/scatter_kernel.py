@@ -14,6 +14,12 @@ scatter and ``where`` (``navier_stokes_solver_tpu/ops/matfree.py``
 ``_scatter`` and ``apply_F``), which the port had run as eight PyTorch
 launches.  CPU tensors take the plain version; a CUDA tensor launches the
 kernel or raises.
+
+On a tile of a domain decomposition the boundary rows cannot ride in the
+kernel: a Dirichlet node on a seam would get ``bc_diag * x`` from both
+tiles, twice its value after the seam sum.  There the kernel runs with
+its rows off, then the seam exchange, then the two ``where``s -- the
+JAX package's order (seam sum inside the scatter, rows after it).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 
 from navier_stokes_solver_tpu_torch.ops.cell_kernel import check_operand
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
-from navier_stokes_solver_tpu_torch.ops.lattice import _scatter_v
+from navier_stokes_solver_tpu_torch.ops.lattice import _scatter_v, _seam_sum
 
 __all__ = ["scatter_v_bc", "scatter_v_bc_plain"]
 
@@ -33,9 +39,13 @@ def scatter_v_bc_plain(disc: Disc, loc, *, bc_diag=None, x_u=None):
     """``_scatter_v`` and, given ``bc_diag``, the two boundary ``where``s."""
     y = _scatter_v(disc, loc)
     if bc_diag is not None:
-        y = torch.where(disc.u_dirichlet, bc_diag * x_u, y)
-        y = torch.where(disc.u_active, y, x_u)
+        y = _boundary_rows(disc, y, bc_diag, x_u)
     return y
+
+
+def _boundary_rows(disc: Disc, y, bc_diag, x_u):
+    y = torch.where(disc.u_dirichlet, bc_diag * x_u, y)
+    return torch.where(disc.u_active, y, x_u)
 
 
 def scatter_v_bc(disc: Disc, loc, *, bc_diag=None, x_u=None):
@@ -67,6 +77,19 @@ def scatter_v_bc(disc: Disc, loc, *, bc_diag=None, x_u=None):
         return scatter_v_bc_plain(disc, loc, bc_diag=bc_diag, x_u=x_u)
     if device.type != "cuda":
         raise ValueError(f"scatter_v_bc: no kernel for device {device}")
+    if disc.decomposed:
+        # a tile: the kernel without its rows, the seam sum, then the rows
+        y = _seam_sum(disc, _launch(disc, loc, None, None, lead))
+        return y if bc_diag is None else _boundary_rows(disc, y, bc_diag, x_u)
+    return _launch(disc, loc, bc_diag, x_u, lead)
+
+
+def _launch(disc: Disc, loc, bc_diag, x_u, lead):
+    """One launch of the kernel (with the boundary rows when ``bc_diag``
+    is given) into a new lattice tensor."""
+    k, ny, nx = disc.deg_v, disc.ny, disc.nx
+    dtype, device = disc.dtype, disc.device
+    lattice = lead + (2,) + disc.NV
 
     from navier_stokes_solver_tpu_torch import _ext
 

@@ -46,6 +46,7 @@ from navier_stokes_solver_tpu_torch.krylov import (
     cg_batched,
     fgmres,
     fgmres_batched,
+    norm_of,
     tnorm,
 )
 from navier_stokes_solver_tpu_torch.ops import Blocks, LinearizationQ, matfree
@@ -195,12 +196,23 @@ class LinearContext:
         the member axis)."""
         return is_batched(self.nu)
 
+    @functools.cached_property
+    def dot(self):
+        """The inner product of this context's vectors: the seam-weighted,
+        all-reduced one on a tile of a domain decomposition, else None
+        (the plain product)."""
+        return matfree.make_dot(self.disc)
+
     def krylov(self):
         """``(fgmres, cg, norm)`` of this context: the batched solvers and
-        per-member norms for an ensemble's."""
+        per-member norms for an ensemble's, the seam-weighted products on a
+        tile."""
         if self.batched:
             return fgmres_batched, cg_batched, bnorm
-        return fgmres, cg, tnorm
+        dot = self.dot
+        if dot is None:
+            return fgmres, cg, tnorm
+        return functools.partial(fgmres, dot=dot), functools.partial(cg, dot=dot), norm_of(dot)
 
     # ---- block applies (post boundary elimination, NSSolver.cpp:596) ----
     @functools.cached_property
@@ -431,7 +443,8 @@ def _fixed_chebyshev(A, dinv, shape, ctx: LinearContext, degree: int, per_member
     the JAX package's ``vmap``; an operator the members share (Lp) takes
     one."""
     batch = ctx.nu.shape[0] if per_member and ctx.batched else None
-    lmax = _estimate_lmax(A, dinv, shape, ctx.disc.dtype, ctx.disc.device, iters=5, batch=batch)
+    lmax = _estimate_lmax(A, dinv, shape, ctx.disc.dtype, ctx.disc.device, iters=5, batch=batch,
+                          dot=ctx.dot, disc=ctx.disc if isinstance(ctx.disc, Disc) else None)
     coeffs = _chebyshev_coeffs(lmax, degree, lmin_ratio=30.0)
     return lambda rhs: _chebyshev(A, dinv, coeffs, rhs)
 
@@ -626,20 +639,22 @@ def make_asimple(ctx: LinearContext, cfg: PrecondConfig, variant: str):
     stokes_mass = ctx.stokes and cfg.asimple_stokes_schur == "mass"
     mp = ctx.jacobi_Mp() if stokes_mass else None
 
+    fgmres_, cg_, norm_ = ctx.krylov()
+
     def vmult(src: Blocks) -> Blocks:
         if fixed:
             du = solve_f(src.u)
         else:
-            du, _ = fgmres(
-                ctx.F, src.u, ctx.disc.zeros_u(), tol=rel_f * tnorm(src.u),
+            du, _ = fgmres_(
+                ctx.F, src.u, ctx.disc.zeros_u(), tol=rel_f * norm_(src.u),
                 maxiter=cfg.inner_maxiter, M=mf,
             )
         tmp_p = src.p - ctx.B(du)
-        tol = rel_s * tnorm(tmp_p)
+        tol = rel_s * norm_(tmp_p)
         if stokes_mass:
             # the Stokes-correct pressure-mass solve, blockTriangular's leg
-            dp, _ = cg(ctx.Mp, tmp_p, torch.zeros_like(tmp_p), tol=tol,
-                       maxiter=cfg.inner_maxiter, M=mp)
+            dp, _ = cg_(ctx.Mp, tmp_p, torch.zeros_like(tmp_p), tol=tol,
+                        maxiter=cfg.inner_maxiter, M=mp)
         else:
             dp = _solve_S(ctx, tmp_p, tol, M=ms)
         dp = dp * ASIMPLE_ALPHA
@@ -682,8 +697,14 @@ def direct_lu_eligible(disc, log=None) -> bool:
     """Whether the direct LU takes a system on ``disc``: at most
     ``DIRECT_LU_MAX_N`` unknowns, the solution vector's length (on the
     structured lattice it also counts the inactive nodes inside the
-    cylinder, so it exceeds the FE DoF count).  With ``log``, a refusal is
-    reported through it."""
+    cylinder, so it exceeds the FE DoF count), and not on a tile of a
+    domain decomposition.  With ``log``, a refusal is reported through
+    it."""
+    if getattr(disc, "decomposed", False):
+        # a tile holds a part of the Jacobian's rows: no factorization
+        if log is not None:
+            log("  direct LU: not under domain decomposition; the -p preconditioner applies")
+        return False
     n = _n_unknowns(disc)
     if n <= DIRECT_LU_MAX_N:
         return True

@@ -128,8 +128,8 @@ def _eval_p(disc: SimplexDisc, p: torch.Tensor) -> torch.Tensor:
 
 def make_dot(disc: SimplexDisc):
     """Inner product over (u, p) block vectors: the plain global sum on one
-    device (the JAX package's seam-weighted form serves its domain
-    decomposition, ROADMAP.md A.D9)."""
+    device (the JAX package's seam-weighted form serves its -M x-strips,
+    ROADMAP.md A.D9b)."""
     return tvdot
 
 

@@ -22,7 +22,8 @@ package's ``vmap`` ensemble and against its own unbatched step, on the CPU.
 * The batched plain kernels equal B per-member plain calls, bit for bit.
 * The JAX-to-port batched ``TimeState`` carrier round-trips.
 * What the ensemble does not batch yet raises ``NotImplementedError``:
-  ``krylov_cycle_dtype="mixed"`` names ROADMAP A.14 and ``mesh=`` A.D9.
+  ``krylov_cycle_dtype="mixed"`` names ROADMAP A.14 (``mesh=`` is tested
+  in ``tests/test_torch_dist.py``).
   (GMRES-IR cycles, ``direct_lu`` and the ``-M`` simplex disc batch:
   ``test_torch_ensemble_rest.py``.)
 """
@@ -217,5 +218,3 @@ def test_unported_combinations_name_the_roadmap():
     for d in (disc, simplex):
         with pytest.raises(NotImplementedError, match="mixed.*A.14"):
             make_ensemble_step(d, precond_cfg=PrecondConfig(**CFG, krylov_cycle_dtype="mixed"))
-    with pytest.raises(NotImplementedError, match="A.D9"):
-        run_sweep(disc, NUS, DT, 1, mesh=object(), precond_cfg=PrecondConfig(**CFG))

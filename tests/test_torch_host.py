@@ -146,6 +146,6 @@ def test_disc_to_float32_casts_the_chain():
 
 def test_disc_from_numpy_rejects_decomposed():
     leaves = _jax_leaves(j_make_disc(j_space(j_geo(8, 4), 2, 1)))
-    leaves["halo_axis"] = "x"
-    with pytest.raises(NotImplementedError, match="A.D9"):
+    leaves["halo_axis"], leaves["halo_n"] = "x", 2
+    with pytest.raises(ValueError, match="tile index"):
         disc_from_numpy(leaves, device="cpu")
