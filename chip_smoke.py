@@ -4,23 +4,26 @@
     python3 chip_smoke.py
 
 Phases (each raises on failure; none catches another's).  They run in this
-order, except that phases 21 and 24 run right after phase 4, phase 19 right
-after phase 10 (on its solver), phases 23, 32, 25 and 26 after phase 19,
-phase 36 in a thread beside the card-vs-CPU phases below (and, when it
-outlasts them, phases 15-17, 20, 33 and 28) and phase 35 in a second
-thread from their end, beside phase 36's last stretch and phases 15-17,
-20, 33 and 28 (each is a chain of device
+order, except that phases 21 and 24 run right after phase 4, phase 6
+right after phase 5, phase 19 right after phase 10 (on its solver),
+phases 23, 32, 25, 26 and 13 after phase 19, phases 15-17, 20, 33, 28 and
+11 after them (20 and 33 after 16, 28 after 17), and the card-vs-CPU
+phases 8, 12, 14, 27, 18, 22, 29 and 31 with phase 30 after those, then
+phases 36 and 35.  Beside them, other processes run: from phase 6 on
+the CPU sides of the card-vs-CPU phases, in three spawned worker processes
+(six of the host's eight cores, at niceness ``CPU_SIDE_NICE``, beside the
+timed single-process paths, each of which keeps one core and the card);
+in threads, from phase 6's end phase 36's four ranks (they need nothing
+of phase 9 until their comparison) and from phase 36's end or phase 13's
+end, whichever comes first, phase 35's (each a chain of device
 synchronizations and host round trips of ranks sharing the card, which
-leaves the host and the card mostly idle), and
-phases 8, 12, 13, 14, 27, 18, 22, 29, 31 and 30 together after phase 26:
-the CPU sides of the card-vs-CPU phases (8, 12, 14, 18, 22, 29, 27, 31) run
-in three spawned worker processes from phase 11 on, beside the timed
-single-process paths (six of the host's eight cores; 18's, 22's, 29's,
-27's and 31's when a worker is free), and phase 30's combinations in two
-more, on the card, followed there by the card sides of phases 18, 22, 29
-and 31; all are joined before phase 15 (the timed paths after them share
-the host and the card with phase 35); phases 20 and 33 run after phase 16,
-and phase 28 after phase 17:
+wait for it asleep); and from phase 13's end phase 30's combinations and
+then the card sides of the card-vs-CPU phases, in ``CARD_WORKERS`` worker
+processes on the card, beside phases 15-17, 20, 33, 28 and 11.  The
+card-vs-CPU phases then only compare what the workers sent back.  Every
+process that drives the card slows the others (the card switches between
+their contexts): phase 36's ranks beside phase 6 made it take 2.3 times
+as long, so they start after it:
 
   1. device   -- require CUDA; print the card (nvidia-smi name and power
                 limit) and the torch / CUDA versions;
@@ -29,24 +32,35 @@ and phase 28 after phase 17:
                 and spill report;
   3. check    -- each kernel against its plain PyTorch version on the card,
                 at 100x70, 300x100 and 100x33 Q3/Q2 (the three main paths),
-                20x9 Q2/Q1 and every multigrid level of the main paths:
+                20x9 Q2/Q1, every multigrid level of the main paths and the
+                odd shapes of ``ODD_SHAPES`` (nx, ny no multiple of the
+                fused kernel's tile; one cell row; one cell column):
                 ``cell_apply_F`` (both
                 entry points, and a permuted lattice layout) within rtol =
                 atol 1e-5 (f32) and 1e-12 (f64); ``scatter_v_bc`` bit for
                 bit (max |diff| == 0), with and without the boundary rows;
-                every operand's largest element offset must fit the
-                kernels' 32-bit indexing;
+                ``apply_F_fused`` (the solver's one-launch ``apply_F``), with
+                and without the rows, on the lattice and its permuted
+                layout, bit for bit against the two launches it replaced
+                (``scatter_v_bc(cell_apply_F_lattice(...))``, the card-side
+                oracle) and within phase 3's tolerances of its plain
+                version; every operand's largest element offset must fit
+                the kernels' 32-bit indexing;
   4. time     -- at every multigrid level of the three main paths and at
-                dd-north's 150x50 tile shape (``scatter_v_bc`` there also
-                without its rows, as a tile launches it), f32, both regimes:
+                dd-north's 150x50 tile shape (``scatter_v_bc`` and
+                ``apply_F_fused`` there also without their rows, as a tile
+                launches them), f32, both regimes:
                 each kernel's device time (CUDA events around 200
                 back-to-back launches queued behind a sleep kernel, so the
                 host cannot starve the card, divided by 200), its
                 host-inclusive time (events around one call, median of 50),
                 its plain version's time, the library yardstick's and the
-                bound;
+                bound; ``apply_F_fused`` beside the two launches it
+                replaced (their device time back to back, their
+                host-inclusive time), its yardstick the Stokes
+                ``torch.matmul`` plus ``index_add_``;
   5. launches -- one ``apply_F`` on CUDA in a ``torch.profiler`` window must
-                run exactly two device kernels, these two (the tracer drops
+                run exactly one device kernel, ``apply_f_fused_kernel`` (the tracer drops
                 a trace's first activities: every trace runs a warm-up
                 call, three marker kernels, the recorded call and a marker,
                 and is taken again, up to five times, when it lacks the
@@ -57,11 +71,14 @@ and phase 28 after phase 17:
                 ``BENCH_r05.json`` within rtol 1e-7, the outer Krylov count
                 stay within 2 x 589, and every kernel of the path must have
                 launched (counts zeroed just before each solve, read just
-                after);
+                after; the solve paths launch ``apply_F_fused`` and never
+                ``cell_apply_F`` or ``scatter_v_bc``, which only the checks
+                launch: ``check_path_launches``, on every path below);
   7. outer    -- at the converged state, device kernels, device time, wall
                 and host readbacks (device-to-host copies) per outer FGMRES
-                iteration in each regime, from profiler windows of 1 and 4
-                outer iterations (difference);
+                iteration in the Newton regime (the Stokes regime's: a depth
+                cut), from profiler windows of 1 and 4 outer iterations
+                (difference);
   8. unsteady-check -- ``NSSolver.solve()`` (the per-step Re ramp) at 32x12
                 Q3/Q2, Re 20, ``CHECK_STEPS`` (two) steps, so the second
                 starts from carried state, all-f64 preconditioner, once on the
@@ -80,7 +97,7 @@ and phase 28 after phase 17:
                 kernel must have launched);
  10. unsteady-outer -- phase 7's profile in the unsteady Newton regime at
                 the state the run ended in, with our kernels' share;
- 11. config1  -- (run after phase 5) BASELINE.json configs[0] through the
+ 11. config1  -- BASELINE.json configs[0] through the
                 port's CLI, in this process (``cli.stationary.run``), not
                 cut: 100x33 Q3/Q2
                 (73,180 DoFs), Re 20, GMRES + blockDiagonal (the
@@ -101,13 +118,15 @@ and phase 28 after phase 17:
                 within 1e-10); whole aSIMPLE and BiCGStab solves on the
                 card alone (finite, converged);
  13. profile  -- a small CLI solve with ``--profile-dir``: the Chrome trace
-                must name both kernels;
+                must name ``apply_f_fused_kernel`` and neither kernel it
+                replaced;
  14. simplex-check -- the ``-M`` P2/P1 simplex backend on the card against
                 the CPU, all-f64, at 24x10: whole solves (stationary Re 20
                 blockTriangular with the p-multigrid and the dense Schur
                 legs; the same with ``--direct-lu``): Krylov counts within 1
                 per solve, drag and lift rtol 1e-7, fields 1e-6 of their
-                magnitude; the two-step unsteady run (per-step Re ramp, the
+                magnitude; the unsteady run, ``SIMPLEX_CHECK_STEPS`` (one,
+                a depth cut) step (per-step Re ramp, the
                 reference's continuity sign, iterative Schur legs): drag and
                 lift per step rtol 1e-7, fields 1e-6, counts printed (its
                 400-600-outer Newton-regime solves are chaotic: a rounding
@@ -121,8 +140,8 @@ and phase 28 after phase 17:
                 Re 1, with the Jacobian-consistent continuity sign; f32
                 preconditioner, p-MG, dense Schur legs: setup, per-step
                 walls, Newton iterations, outers per step; every step's
-                Newton residual <= 1e-9, finite coefficients; then phase 7's
-                profile in its Newton regime with the costliest device ops;
+                Newton residual <= 1e-9, finite coefficients (its per-outer
+                profile: a depth cut);
  16. config3-lu -- the same with ``--direct-lu``, T = 0.12 (12 of the 800
                 steps of the record): matrix-build, factor and solve
                 seconds per tangent solve; the last step's drag within rtol
@@ -153,23 +172,25 @@ and phase 28 after phase 17:
                 call resuming from the directory, phase 9's preconditioner
                 (Cahouet-Chabard, one Lp V-cycle, f32, basis 30, tol 1e-9):
                 per-step wall, Newton iterations, outers, final residual
-                (each <= 1e-9), finite coefficients, launches of both kernels
+                (each <= 1e-9), finite coefficients, launches of the three kernels
                 (counts zeroed just before, read just after);
  20. config3-lu-fused -- phase 16 through ``cli.unsteady.run --fused``,
                 ``CONFIG3_LU_STEPS`` steps: per-step walls, Newton iterations,
                 outers, residuals (each <= 1e-9), factorizations; the last
                 drag within rtol 1e-5 of the 800-step record (a fused run);
- 21. ensemble-kernels -- both kernels with the member axis at every
+ 21. ensemble-kernels -- the three kernels with the member axis at every
                 level of BASELINE config 5's multigrid chain (60x40 Q2/Q1
                 and its coarse levels, B = 64), f32 and f64, both regimes:
                 each batched launch against its plain version (phase 3's
                 tolerances) and, bit for bit, against B unbatched launches
                 on the members' operands and against itself on a permuted
-                lattice layout; the 32-bit index check over the batched
-                operands; then, at 60x40, phase 4's timings of the batched
-                launch (f32), with the library call's (a batched matmul of
-                the per-member Stokes element matrices; ``index_add_`` over
-                all members) and the bound (phase 4's reckoning over B
+                lattice layout (``apply_F_fused`` also against the two
+                batched launches it replaced); the 32-bit index check over
+                the batched operands; then, at 60x40, phase 4's timings of
+                the batched launch (f32), with the library call's (a
+                batched matmul of the per-member Stokes element matrices;
+                ``index_add_`` over all members; their sum for
+                ``apply_F_fused``) and the bound (phase 4's reckoning over B
                 members, the operands they share counted once);
  22. ensemble-check -- a small ensemble (16x8 Q2/Q1, B = 3, Re 20/60/100,
                 two steps, all-f64, tangent solves capped at 20) on the
@@ -185,14 +206,14 @@ and phase 28 after phase 17:
                 per-step walls, member-steps/s, per-member Newton
                 iterations, Krylov totals and final residuals (each member
                 at or under 1e-9, or at the Newton cap, listed), finite drag
-                and lift for every member, launches of both kernels (counts
+                and lift for every member, launches of the three kernels (counts
                 zeroed just before, read just after); then the B = 1
                 control (member B//2's state after the warm-up, stepped as
                 many times by the unbatched step) and
                 ``batch_efficiency_vs_single`` = t_1 B / t_B, each beside
                 the card's name and power limit; then phase 7's profile of
                 one outer iteration of the batched tangent solve;
- 24. cavity-kernels -- both kernels at every level of the 128x128 Q2/Q1
+ 24. cavity-kernels -- the three kernels at every level of the 128x128 Q2/Q1
                 lid-driven cavity's multigrid chain (128^2 down to 8^2: a
                 cavity at every level, square cells, no inactive node, the
                 lid's corner nodes Dirichlet), f32 and f64, both regimes,
@@ -212,7 +233,7 @@ and phase 28 after phase 17:
                 (the continuation, ``output()`` at each of its call sites)
                 into a temporary directory: the record's two files exist
                 and decode to ``fields()`` at the cell corners bit for bit;
-                both kernels launched;
+                apply_F_fused launched, the other two not;
  27. cavity-check -- a 32x32 Q2/Q1 cavity with a body force at Re 100,
                 ``solve_direct``, all-f64, on the card against the CPU:
                 outers within 1 per tangent solve, fields within 1e-6 of
@@ -233,24 +254,23 @@ and phase 28 after phase 17:
                 -- every tangent solve capped inside the stretch where two
                 roundings agree (20; BiCGStab 10, PCD 5): the same gates.  The CPU side runs in a
                 worker process;
- 30. ensemble-matrix -- (a)-(f) at config 5's width (60x40 Q2/Q1, B = 64,
+ 30. ensemble-matrix -- (b)-(f) at config 5's width (60x40 Q2/Q1, B = 64,
                 1,414,592 DoFs, Re 20..100, dt 0.01, tol 1e-9, ``newton_max``
                 3, ``krylov_maxiter`` 200, f32 preconditioner, the
-                reference's sign), ``ENSEMBLE_MATRIX_STEPS`` (two) steps
-                each from rest, in two worker processes on the card ((a)
-                in one, the other five in the other) beside the
-                card-vs-CPU phases (the walls are measured while those
-                share the card and the host): step
+                reference's sign), ``ENSEMBLE_MATRIX_STEPS`` (one, a depth
+                cut) step each from rest, in the worker processes on the
+                card beside the ``-M`` phases and the decomposed ones (the
+                walls are measured while those and the other workers share
+                the card and the host): step
                 walls and member-steps/s, outers per
                 step (the slowest member), each member's Newton count and
                 final residual, the members BiCGStab marked failed, the
-                launches of both kernels (counts zeroed just before each
+                launches of the three kernels (counts zeroed just before each
                 combination's first step, read just after its last).
                 Gates: finite drag and lift for every member, each member's
                 residual at or below 1e-9 or the member at the Newton cap or
                 stopped by the step's stagnation break (both listed), both
-                kernels launched in each combination; (a) runs
-                ``ENSEMBLE_MATRIX_A_STEPS`` (one) step, a depth cut;
+                kernels launched in each combination;
  31. ensemble-rest-check -- phase 22 for every case of
                 ``ENSEMBLE_REST_CHECK``, all-f64 discs, two steps from rest,
                 B = 3: (i) 16x8 Q2/Q1, Re 20/60/100, f32 GMRES-IR cycles,
@@ -267,12 +287,12 @@ and phase 28 after phase 17:
                 ``krylov_cycle_dtype="float32"``: step walls,
                 member-steps/s, outers and restart cycles per step (the
                 slowest member), the members at the Newton cap or stopped by
-                the stagnation break (listed), launches of both kernels
+                the stagnation break (listed), launches of the three kernels
                 (counts zeroed just before the warm-up, read after the last
                 step), then phase 7's profile of the batched tangent solve
                 beside phase 23's.  Gates: finite drag and lift for every
-                member, each member at or below 1e-9 or listed, both kernels
-                launched;
+                member, each member at or below 1e-9 or listed, apply_F_fused
+                launched and the other two not;
  33. ensemble-simplex-lu -- config 3 with ``--direct-lu`` as a Reynolds
                 sweep, built from phase 20's solver (its disc with the dense
                 Schur legs, its ``precond_config``, the step keywords of its
@@ -297,10 +317,11 @@ and phase 28 after phase 17:
                 (``tile_blocks`` / ``all_gather_blocks``) bit for bit, both
                 kernels launched on every rank (the kernels built once,
                 before the ranks start); then on every rank's tile, in f64,
-                at every level of its chain (16x12 and 16x6 down), both
+                at every level of its chain (16x12 and 16x6 down), the
                 kernels against their plain versions as in phase 3 --
-                ``scatter_v_bc`` with its seam exchange and, given
-                ``bc_diag``, its rows after it, bit for bit;
+                ``scatter_v_bc`` and ``apply_F_fused`` with their seam
+                exchange and, given ``bc_diag``, their rows after it, bit for
+                bit (``apply_F_fused`` against the two launches);
  36. dd-north -- this slice's full-width path: phase 9's step (300x100
                 Q3/Q2, 657,740 DoFs, Re 100, f32 Cahouet-Chabard) on four
                 150x50 tiles, four ranks sharing the card: Krylov total
@@ -310,9 +331,13 @@ and phase 28 after phase 17:
                 the seam bytes; then, on every rank's tile, the kernel
                 checks of phase 35 in f32 at every level of the tile's
                 chain (150x50 down to 10x2) and the round trip;
- 34. report   -- one JSON line of per-kernel results (launches from phase
-                36 and times at its 150x50 tile shape: cell_apply_F Stokes,
-                scatter_v_bc without its rows; max |kernel - plain| over
+ 34. report   -- one JSON line of per-kernel results, ``apply_F_fused``
+                first, then ``cell_apply_F`` and ``scatter_v_bc`` (0
+                launches on every path: only the checks launch them):
+                launches from phase
+                36 and times at its 150x50 tile shape: apply_F_fused Stokes
+                without its rows, cell_apply_F Stokes, scatter_v_bc without
+                its rows; max |kernel - plain| over
                 phases 3, 21, 24, 35 and 36,
                 with every path's launches -- the fused 300x100 path's, the
                 ensemble's, the cavity's and the ensemble matrix's among
@@ -330,16 +355,32 @@ of its 1,200 s on a slow card without the last three -- then fused-main to
 one step (``FUSED_MAIN_STEPS``; its checkpoint resume is still the one
 from phase 9's state, and fused-check keeps its own round trip; taken for
 phases 29-30, whose combinations took 477 s on the card one after the
-other in this process, and now run in two worker processes beside the
-card-vs-CPU phases) -- then ensemble-matrix (a) to one step
-(``ENSEMBLE_MATRIX_A_STEPS``; its 200-iteration-capped solves set the
+other in this process, and now run in worker processes on the card) --
+then ensemble-matrix (a) to one step
+(``ENSEMBLE_MATRIX_STEPS``; its 200-iteration-capped solves set the
 pooled block's wall, 245 / 189 s per step; taken for phases 31-33) -- then
 config3 to one of its three steps (``CONFIG3_STEPS``) and
 ensemble-simplex-lu to one (``ENSEMBLE_SIMPLEX_STEPS``) and the
 ensemble's timed steps to one (``ENSEMBLE_STEPS``, ensemble-ir's
 included) -- the last three taken for phases 35-36, whose collectives,
 each a device synchronization and a host round trip, took 780 s before
-they were cut down -- never a mesh, the simplex check, the fused check,
+they were cut down -- then phase 7's Stokes-regime profile and config3's
+per-outer profile (taken when the fused kernel's checks came in and a
+slow host ran the whole script in 1,216 s; phase 35 also moved to start
+at phase 36's end when that comes before the card-vs-CPU phases' end)
+-- then, when a slower host still ran the script past 1,200 s, the
+simplex check's unsteady run to one of its two steps
+(``SIMPLEX_CHECK_STEPS``; fused-check and ensemble-rest-check still
+carry -M state across two steps) and ensemble-matrix's other five
+combinations to one step, with the schedule above: phase 36 from phase
+6's end, not phase 13's, and the card-vs-CPU card sides in the card
+workers beside the -M phases, not in this process after the timed paths
+(a schedule that ran every worker and phase 36 beside the timed paths
+took 1,226 s; this one 1,021 s, up to seventeen processes driving the
+card at once, each two- to threefold slower) -- then ensemble-matrix's
+(a) at width, its one step (535 s there) as long as the other five
+together, the card workers' long pole (its 16x8 card-vs-CPU check stays
+in phase 29) -- never a mesh, the simplex check, the fused check,
 the unsteady check's second step, the ensemble's B = 64, nor a kernel
 check's shape.  If the cavity phases ever need room,
 cavity-ghia goes to 64x64 (Ghia's own 129^2 velocity grid).  The cuts are
@@ -361,6 +402,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -439,10 +481,14 @@ MATRIX_TANGENT = {  # capped tangent solves, card vs CPU: (solver, prec, variant
 MATRIX_FIELD_GATE = 1e-6  # relative to each field's largest magnitude
 # the -M simplex path (the reference's mesh path, BASELINE config 3)
 SIMPLEX_CHECK_MESH = (24, 10)
+# the unsteady run's steps (the tenth depth cut, from 2: a slow host ran the
+# script past its 1,200 s; fused-check and ensemble-rest-check still carry
+# -M state across two steps)
+SIMPLEX_CHECK_STEPS = 1
 SIMPLEX_CHECK = [  # whole runs, card vs CPU, all-f64: (entry, unsteady, SolverOptions fields, PrecondConfig fields)
     ("-M stationary -p 1 Re 20 (p-MG, dense Schur legs)", False, {}, {}),
     ("-M stationary -p 1 Re 20 --direct-lu", False, {}, dict(direct_lu=True)),
-    ("-M unsteady -p 1 Re 20, two steps, per-step ramp (iterative Schur legs)", True,
+    ("-M unsteady -p 1 Re 20, one step, per-step ramp (iterative Schur legs)", True,
      dict(dense_schur=False), {}),
 ]
 # capped tangent solves, card vs CPU, all-f64, unsteady Newton regime from a
@@ -525,13 +571,23 @@ ENSEMBLE_MATRIX = [
     ("f FGMRES + blockTriangular + Cahouet-Chabard, Schwarz smoother", dict(solver_type=1, prec_type=1),
      dict(schur_mode="cahouet", cc_lp_cycles=1, mg_smoother="schwarz"), 20),
 ]
-ENSEMBLE_MATRIX_STEPS = 2  # from rest: the first lifts the inlet
-# (a)'s steps: the sixth depth cut, from 2 (room for phases 31-33); its
-# tangent solves all run to the 200-iteration cap
-ENSEMBLE_MATRIX_A_STEPS = 1
-# ensemble-matrix's worker processes on the card: (a), whose f32 tangent solves
-# run to the 200-iteration cap, takes as long as the other five together
-ENSEMBLE_MATRIX_WORKERS = 2
+# steps from rest (the first lifts the inlet): (a)'s cut from 2 to 1 (the
+# sixth depth cut, room for phases 31-33; its tangent solves all run to the
+# 200-iteration cap), the others' too (the eleventh, from 2: a slow host ran
+# the script past its 1,200 s)
+ENSEMBLE_MATRIX_STEPS = 1
+# the combinations ensemble-matrix runs at config 5's width: all but (a),
+# which ensemble-matrix-check still runs on the card against the CPU (its
+# one step at width took 300-598 s in a card worker, as long as the other
+# five together; dropped when the depth cuts left too little to cut)
+ENSEMBLE_MATRIX_WIDTH = tuple(range(1, len(ENSEMBLE_MATRIX)))
+# the worker processes on the card (``card_pool``): ensemble-matrix's
+# combinations, then the card sides of ``CARD_SIDES``, from phase 13's end
+CARD_WORKERS = 3
+# the CPU sides' worker processes run at this niceness: they have the most
+# slack, and leave the host's cores first to the timed paths, the card
+# workers and the decomposed ranks, which wait on the card
+CPU_SIDE_NICE = 5
 # ensemble-rest-check: the ensemble's GMRES-IR cycles, direct LU and -M
 # simplex disc on the card against the CPU, all-f64 discs, two steps from
 # rest, newton_max 3, FGMRES + blockTriangular: (label, backend, PrecondConfig
@@ -589,10 +645,24 @@ DD_CHECK_NUS = (1 / 20.0, 1 / 40.0, 1 / 70.0, 1 / 100.0)
 DD_NORTH_TILES = (2, 2)
 DD_NORTH_TILE = (UNSTEADY_MESH[0] // DD_NORTH_TILES[0], UNSTEADY_MESH[1] // DD_NORTH_TILES[1])
 SOURCES = {
+    "apply_F_fused": "navier_stokes_solver_tpu_torch/csrc/apply_f_fused.cu",
     "cell_apply_F": "navier_stokes_solver_tpu_torch/csrc/cell_apply_f.cu",
     "scatter_v_bc": "navier_stokes_solver_tpu_torch/csrc/scatter_v.cu",
 }
+# the kernels the solve paths launch (apply_F, one launch each), and the
+# two it replaced there, which only the checks launch now: the card-side
+# oracle the one-launch apply_F is held against bit for bit
+PATH_KERNELS = ("apply_F_fused",)
+ORACLES = ("cell_apply_F", "scatter_v_bc")
+KERNELS = PATH_KERNELS + ORACLES
+# odd shapes for phase 3: nx and ny not multiples of the fused kernel's
+# cell tile (3 x 15 at Q3, 6 x 15 at Q2), one cell row, one cell column
+# ((mesh, degrees))
+ODD_SHAPES = [((7, 3), (3, 2)), ((37, 13), (3, 2)), ((33, 9), (2, 1)), ((9, 1), (3, 2)), ((1, 7), (3, 2)),
+              ((5, 1), (2, 1))]
 REPLACES = {
+    # the Pallas kernel, with the XLA scatter and apply_F's where as its epilogue
+    "apply_F_fused": "navier_stokes_solver_tpu/ops/pallas_cell.py:62",
     "cell_apply_F": "navier_stokes_solver_tpu/ops/pallas_cell.py:62",
     # XLA on the TPU (sum of dilated pads, then apply_F's two where), no Pallas kernel
     "scatter_v_bc": "navier_stokes_solver_tpu/ops/matfree.py:91",
@@ -811,6 +881,43 @@ def scatter_cost(disc, with_bc, batch=None):
     return n * member * disc.cell_w.element_size() + nbytes, n * (2 * n_v * disc.nx * disc.ny + 2 * NY * NX)
 
 
+def apply_f_fused_cost(disc, stokes, with_bc, batch=None):
+    """Bytes and flops of one ``apply_F_fused`` call: the cell apply's
+    inputs (the lattice, the linearization, ``cell_w``, the tables, the
+    viscosities) and, with the rows, ``bc_diag`` and the two bool masks,
+    each read once, and the lattice written once.  The cell-local results
+    stay on chip and the halo's second reads are not counted; ``batch`` as
+    in ``cell_apply_cost``."""
+    n_q, n_v = disc.cell_tabs.shape[1:]
+    C = disc.nx * disc.ny
+    NY, NX = disc.NV
+    member = 4 * NY * NX  # x read, out written
+    shared = n_q * C + 3 * n_q * n_v
+    mask_bytes = 0
+    if stokes:
+        flops = C * (16 * n_q * n_v + 8 * n_q)
+    else:
+        member += 6 * n_q * C
+        flops = C * (24 * n_q * n_v + 28 * n_q)
+    flops += 2 * n_v * C  # the ordered sums
+    if with_bc:
+        member += 2 * NY * NX  # diag
+        mask_bytes = 2 * NY * NX
+    words = shared + member if batch is None else shared + batch * (member + 1)
+    return words * disc.cell_w.element_size() + mask_bytes, flops * (batch or 1)
+
+
+def check_path_launches(counts, what):
+    """Raise unless ``counts`` (``read_counts``) show that a solve path
+    launched the one-launch apply_F and neither kernel it replaced there."""
+    for name in PATH_KERNELS:
+        if counts[name]["launches"] <= 0:
+            raise RuntimeError(f"{what} never launched {name}")
+    for name in ORACLES:
+        if counts[name]["launches"]:
+            raise RuntimeError(f"{what} launched {name} {counts[name]['launches']} times: only the checks may")
+
+
 # ---------------------------------------------------------------------------
 # 3. check
 # ---------------------------------------------------------------------------
@@ -849,23 +956,31 @@ def max_offset(t) -> int:
 
 
 def check_shape(device, mesh, deg, dtype, make_geometry=None, label=""):
-    """Both kernels against their plain versions at one shape and dtype
-    (``check_disc``): returns the largest |kernel - plain| of each."""
+    """The three kernels against their plain versions at one shape and
+    dtype (``check_disc``): returns the largest |kernel - plain| of each."""
     disc, linq, x, bc = kernel_case(device, mesh, deg, dtype, make_geometry=make_geometry)
     return check_disc(disc, linq, x, bc, f"{label}{mesh[0]}x{mesh[1]} Q{deg[0]}/Q{deg[1]} {str(dtype)[6:]}")
 
 
 def check_disc(disc, linq, x, bc, shape, log=print):
-    """Both kernels against their plain versions on ``disc`` (``shape``
-    names it), in both regimes (``cell_apply_F`` through both entry points
-    and a permuted lattice layout within ``KERNEL_TOL``, ``scatter_v_bc``
-    bit for bit, with and without the boundary rows), after the 32-bit
-    offset check of every operand: returns the largest |kernel - plain| of
-    each.  On a tile of a decomposition ``scatter_v_bc`` (kernel and plain
-    version alike) completes its seams with the neighbours: every rank of
-    the tile grid must call this in step.  ``log`` takes each line."""
+    """The kernels against their plain versions on ``disc`` (``shape``
+    names it), in both regimes, after the 32-bit offset check of every
+    operand: ``cell_apply_F`` through both entry points and a permuted
+    lattice layout within ``KERNEL_TOL``; ``scatter_v_bc`` bit for bit,
+    with and without the boundary rows; ``apply_F_fused``, with and
+    without the rows, on the lattice and on its permuted layout, bit for
+    bit against the two launches it replaced
+    (``scatter_v_bc(cell_apply_F_lattice(...))``, the card-side oracle) and
+    within ``KERNEL_TOL`` of its plain version.  Returns the largest
+    |kernel - plain| of each, in ``KERNELS``' order.  On a tile of a
+    decomposition ``scatter_v_bc`` and ``apply_F_fused`` (kernels and
+    plain versions alike) complete their seams with the neighbours: every
+    rank of the tile grid must call this in step.  ``log`` takes each
+    line."""
     import torch
 
+    from navier_stokes_solver_tpu_torch.ops import apply_f_kernel
+    from navier_stokes_solver_tpu_torch.ops.apply_f_kernel import apply_F_fused, apply_F_fused_plain
     from navier_stokes_solver_tpu_torch.ops.cell_kernel import (
         cell_apply_F,
         cell_apply_F_lattice,
@@ -874,7 +989,7 @@ def check_disc(disc, linq, x, bc, shape, log=print):
     from navier_stokes_solver_tpu_torch.ops.lattice import _gather_v, lattice_view
     from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
 
-    err_a = err_b = 0.0
+    err_a = err_b = err_f = 0.0
     # the layout a multigrid transfer's einsum hands the kernel
     x_perm = x.permute(2, 0, 1).contiguous().permute(1, 2, 0)
     tol = KERNEL_TOL[str(disc.dtype)[6:]]
@@ -890,7 +1005,8 @@ def check_disc(disc, linq, x, bc, shape, log=print):
         got = {
             "lattice": cell_apply_F_lattice(*args, x, stokes=stokes),
             "lattice, permuted": cell_apply_F_lattice(*args, x_perm, stokes=stokes),
-            "gathered": cell_apply_F(*args, _gather_v(disc, x), stokes=stokes),
+            # contiguous: at nx = 1 the gather is a view, not a copy
+            "gathered": cell_apply_F(*args, _gather_v(disc, x).contiguous(), stokes=stokes),
         }
         torch.cuda.synchronize()
         for entry, g in got.items():
@@ -912,19 +1028,47 @@ def check_disc(disc, linq, x, bc, shape, log=print):
             log(f"[check] scatter_v_bc ({what}) {tag}: max|kernel-plain| {e!r}, bitwise equal {same}")
             if e != 0.0 or not same:
                 raise RuntimeError(f"scatter_v_bc ({what}) is not bit-identical to its plain version at {tag}")
-    return err_a, err_b
+        for b_, xx, what in ((None, x, "raw"), (bc, x, "bc"), (None, x_perm, "raw, permuted x"), (bc, x_perm, "bc, permuted x")):
+            g = apply_F_fused(*args, xx, stokes=stokes, bc_diag=b_)
+            two = scatter_v_bc(disc, cell_apply_F_lattice(*args, xx, stokes=stokes), bc_diag=b_, x_u=xx)
+            w = apply_F_fused_plain(*args, xx, stokes=stokes, bc_diag=b_)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(g).all()):
+                raise RuntimeError(f"apply_F_fused ({what}): non-finite output at {tag}")
+            same = torch.equal(g, two)
+            # every block shape the kernel is built with gives the same bits
+            # (on a tile the launch is the seam sum's operand: not compared)
+            shapes = [] if disc.decomposed else [
+                torch.equal(apply_f_kernel._launch(*args, xx, b_, stokes, (), shape), g)
+                for shape in range(len(apply_f_kernel.BLOCK_SHAPES[disc.deg_v]))]
+            err = (g - w).abs()
+            bad = int((err > tol + tol * w.abs()).sum())
+            e = float(err.max())
+            err_f = max(err_f, e)
+            log(f"[check] apply_F_fused ({what}) {tag}: bitwise equal to the two launches {same} (max|diff| {float((g - two).abs().max())!r}), at each block shape {shapes}; max|kernel-plain| {e:.3e} (max|plain| {float(w.abs().max()):.3e}), {bad} entries outside rtol=atol={tol:g}")
+            if not same or not all(shapes):
+                raise RuntimeError(f"apply_F_fused ({what}) is not bit-identical to scatter_v_bc(cell_apply_F_lattice(...)) at {tag}")
+            if bad:
+                raise RuntimeError(f"apply_F_fused ({what}) disagrees with its plain version at {tag}")
+    return err_f, err_a, err_b
 
 
 def phase_check(device):
     import torch
 
-    err_a = err_b = 0.0
-    for mesh, deg in kernel_shapes(device):
-        dtypes = (torch.float32, torch.float64) if mesh in (BENCH_MESH, (20, 9), UNSTEADY_MESH, CONFIG1_MESH) else (torch.float32,)
-        for dtype in dtypes:
-            a, b = check_shape(device, mesh, deg, dtype)
-            err_a, err_b = max(err_a, a), max(err_b, b)
-    return {"cell_apply_F": err_a, "scatter_v_bc": err_b}
+    errs = dict.fromkeys(KERNELS, 0.0)
+    for mesh, deg in kernel_shapes(device) + ODD_SHAPES:
+        full = mesh in (BENCH_MESH, (20, 9), UNSTEADY_MESH, CONFIG1_MESH) or (mesh, deg) in ODD_SHAPES
+        for dtype in (torch.float32, torch.float64) if full else (torch.float32,):
+            errs = fold_errs(errs, check_shape(device, mesh, deg, dtype))
+    return errs
+
+
+def fold_errs(errs, more):
+    """``errs`` ({kernel: largest error}) with ``more`` (a dict, or a tuple
+    in ``KERNELS``' order) folded in."""
+    more = more if isinstance(more, dict) else dict(zip(KERNELS, more))
+    return {name: max(errs[name], more[name]) for name in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -933,12 +1077,17 @@ def phase_check(device):
 
 
 def time_shape(device, mesh, deg, make_geometry=None, label="", raw=False):
-    """Phase 4's records of both kernels at one shape, f32: {kernel: {tag:
-    record}} -- each kernel's device time, host-inclusive time, plain
+    """Phase 4's records of the three kernels at one shape, f32: {kernel:
+    {tag: record}} -- each kernel's device time, host-inclusive time, plain
     version's time, library yardstick's time and bound, in both regimes;
-    with ``raw`` also ``scatter_v_bc`` without its boundary rows."""
+    ``apply_F_fused`` with its rows, beside the two launches it replaced
+    (``two_launch_ms``: their device time back to back;
+    ``two_launch_host_ms``: their host-inclusive time), its yardstick the
+    Stokes ``torch.matmul`` plus ``index_add_``; with ``raw`` also
+    ``scatter_v_bc`` and ``apply_F_fused`` without their rows."""
     import torch
 
+    from navier_stokes_solver_tpu_torch.ops.apply_f_kernel import apply_F_fused, apply_F_fused_plain
     from navier_stokes_solver_tpu_torch.ops.cell_kernel import (
         cell_apply_F_lattice,
         cell_apply_F_lattice_plain,
@@ -946,7 +1095,7 @@ def time_shape(device, mesh, deg, make_geometry=None, label="", raw=False):
     from navier_stokes_solver_tpu_torch.ops.lattice import _gather_v, lattice_view
     from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
 
-    out = {"cell_apply_F": {}, "scatter_v_bc": {}}
+    out = {name: {} for name in KERNELS}
     disc, linq, x, bc = kernel_case(device, mesh, deg, torch.float32, make_geometry=make_geometry)
     shape = f"{label}{mesh[0]}x{mesh[1]} Q{deg[0]}/Q{deg[1]} float32"
     for stokes in (True, False):
@@ -963,7 +1112,7 @@ def time_shape(device, mesh, deg, make_geometry=None, label="", raw=False):
             _, Dx, Dy = disc.cell_tabs
             K = KERNEL_NU * (Dx.T @ (disc.w_q[:, None] * Dx) + Dy.T @ (disc.w_q[:, None] * Dy))
             xl = _gather_v(disc, x).reshape(K.shape[0], -1)
-            rec["library_ms"] = device_ms(lambda: torch.matmul(K, xl))
+            rec["library_ms"] = matmul_ms = device_ms(lambda: torch.matmul(K, xl))
         rec["bound_ms"], rec["bound_by"] = bound(*cell_apply_cost(disc, stokes))
         tag = f"{shape} {'stokes' if stokes else 'newton'}"
         out["cell_apply_F"][tag] = rec
@@ -986,6 +1135,24 @@ def time_shape(device, mesh, deg, make_geometry=None, label="", raw=False):
     tag = f"{shape} bc"
     out["scatter_v_bc"][tag] = rec
     print(f"[time] scatter_v_bc {tag}: {json.dumps(rec)}")
+    index_add_ms = rec["library_ms"]
+    for stokes in (True, False):
+        for b_ in (bc, None) if raw else (bc,):
+            args = (disc, KERNEL_NU, KERNEL_INV_DT, None if stokes else linq, x)
+            fused = lambda: apply_F_fused(*args, stokes=stokes, bc_diag=b_)
+            two = lambda: scatter_v_bc(disc, cell_apply_F_lattice(*args, stokes=stokes), bc_diag=b_, x_u=x)
+            rec = {
+                "ms": device_ms(fused),
+                "host_ms": host_ms(fused),
+                "plain_ms": device_ms(lambda: apply_F_fused_plain(*args, stokes=stokes, bc_diag=b_), PLAIN_CALLS),
+                "two_launch_ms": device_ms(two),
+                "two_launch_host_ms": host_ms(two),
+                "library_ms": matmul_ms + index_add_ms if stokes else None,
+            }
+            rec["bound_ms"], rec["bound_by"] = bound(*apply_f_fused_cost(disc, stokes, b_ is not None))
+            tag = f"{shape} {'stokes' if stokes else 'newton'} {'raw' if b_ is None else 'bc'}"
+            out["apply_F_fused"][tag] = rec
+            print(f"[time] apply_F_fused {tag}: {json.dumps(rec)}")
     if raw:
         # without the boundary rows: a tile's launch (its rows come after
         # the seam exchange)
@@ -1006,8 +1173,9 @@ def phase_time(device):
     """Per kernel: {shape tag: timing record}, f32, at every multigrid
     level of the three main paths, and at dd-north's tile shape (an
     undecomposed channel of that shape: the kernels' work is the tile's;
-    ``scatter_v_bc`` also without its rows, as a tile launches it)."""
-    out = {"cell_apply_F": {}, "scatter_v_bc": {}}
+    ``scatter_v_bc`` and ``apply_F_fused`` also without their rows, as a
+    tile launches them)."""
+    out = {name: {} for name in KERNELS}
     for mesh in chain_shapes(device) + [DD_NORTH_TILE]:
         for name, recs in time_shape(device, mesh, (3, 2), raw=mesh == DD_NORTH_TILE).items():
             out[name].update(recs)
@@ -1092,8 +1260,8 @@ def phase_launches(device):
         call = lambda: apply_F(disc, KERNEL_NU, KERNEL_INV_DT, None if stokes else linq, x, stokes=stokes, bc_diag=bc)
         names = [e.name for e in profile_call(call)[0]]
         print(f"[launches] one apply_F ({'stokes' if stokes else 'newton'}): {len(names)} device kernels: {names}")
-        if len(names) != 2 or "cell_apply_f_kernel" not in names[0] or "scatter_v_kernel" not in names[1]:
-            raise RuntimeError(f"one apply_F ran {len(names)} device kernels, not the two of ours: {names}")
+        if len(names) != 1 or "apply_f_fused_kernel" not in names[0]:
+            raise RuntimeError(f"one apply_F ran {len(names)} device kernels, not the one of ours: {names}")
 
 
 # ---------------------------------------------------------------------------
@@ -1124,10 +1292,11 @@ def bench_options(device):
 
 
 def counters():
+    from navier_stokes_solver_tpu_torch.ops.apply_f_kernel import apply_F_fused
     from navier_stokes_solver_tpu_torch.ops.cell_kernel import cell_apply_F
     from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc
 
-    return {"cell_apply_F": cell_apply_F, "scatter_v_bc": scatter_v_bc}
+    return {"apply_F_fused": apply_F_fused, "cell_apply_F": cell_apply_F, "scatter_v_bc": scatter_v_bc}
 
 
 def reset_counts():
@@ -1169,9 +1338,7 @@ def run_solve(device, ref):
         raise RuntimeError(f"DoF count {s.n_dofs} != {ref['n_dofs']}")
     if u.shape != (2,) + s.disc.NV or p.shape != s.disc.NP or not (np.isfinite(u).all() and np.isfinite(p).all()):
         raise RuntimeError("solution fields are not finite or have the wrong shape")
-    for name, c in counts.items():
-        if c["launches"] <= 0:
-            raise RuntimeError(f"the main path never launched {name}")
+    check_path_launches(counts, "the main path")
     if not abs(s.drag_coeff - ref["drag_coeff"]) <= DRAG_RTOL * abs(ref["drag_coeff"]):
         raise RuntimeError(f"drag coefficient {s.drag_coeff!r} is not within rtol {DRAG_RTOL} of {ref['drag_coeff']!r}")
     if total > 2 * BENCH_OUTER_ITERS:
@@ -1213,7 +1380,7 @@ def profile_solve(solve, iters=OUTER_WINDOW):
     member: the windows take the largest."""
     import numpy as np
 
-    ours = {"cell_apply_F": "cell_apply_f_kernel", "scatter_v_bc": "scatter_v_kernel"}
+    ours = {"apply_F_fused": "apply_f_fused_kernel", "cell_apply_F": "cell_apply_f_kernel", "scatter_v_bc": "scatter_v_kernel"}
     win, by_name = {}, {}
     for n in (1, 1 + iters):
         # a one-iteration warm-up keeps the longer window's trace short
@@ -1354,12 +1521,15 @@ def unsteady_check_run(device):
     return {"history": s.history, "fields": s.fields(), "wall_s": time.perf_counter() - t0}
 
 
-def phase_unsteady_check(device, cpu_side):
+def phase_unsteady_check(device, cpu_side, card_side=None):
     """The per-step ramp path on the card against the same run on the CPU
-    (``cpu_side``: the future of ``cpu_job("unsteady-check")``)."""
+    (``cpu_side``: the future of ``cpu_job("unsteady-check")``;
+    ``card_side``: the future of ``card_job("unsteady-check")``, by default
+    run here)."""
     import numpy as np
 
-    runs = {"card": unsteady_check_run(device), "cpu": cpu_side.result()}
+    card = unsteady_check_run(device) if card_side is None else card_side.result()
+    runs = {"card": card, "cpu": cpu_side.result()}
     for where, s in runs.items():
         print(f"[unsteady-check] {CHECK_MESH[0]}x{CHECK_MESH[1]} Re {CHECK_RE} on the {where}: solve wall {s['wall_s']!r} s, per solve {[(h['phase'], h['nu'], h['n_iter'], h['krylov_iters']) for h in solves_of(s)]}")
     g, c = runs["card"], runs["cpu"]
@@ -1404,9 +1574,7 @@ def phase_unsteady_main(device):
     if s.n_dofs != UNSTEADY_DOFS:
         raise RuntimeError(f"DoF count {s.n_dofs} != {UNSTEADY_DOFS}")
     check_steps(s, steps, "unsteady-main")
-    for name, c in counts.items():
-        if c["launches"] <= 0:
-            raise RuntimeError(f"the unsteady path never launched {name}")
+    check_path_launches(counts, "the unsteady path")
     return s, {"wall_s": wall, "steps": steps, "counts": counts}
 
 
@@ -1451,9 +1619,7 @@ def phase_config1(device):
         raise RuntimeError(f"config1: DoF count {s.n_dofs} != {CONFIG1_DOFS}")
     if u.shape != (2,) + s.disc.NV or p.shape != s.disc.NP or not (np.isfinite(u).all() and np.isfinite(p).all()):
         raise RuntimeError("config1: solution fields are not finite or have the wrong shape")
-    for name, c in counts.items():
-        if c["launches"] <= 0:
-            raise RuntimeError(f"config1 never launched {name}")
+    check_path_launches(counts, "config1")
     if not rel <= CONFIG1_DRAG_RTOL:
         raise RuntimeError(f"config1: drag coefficient {s.drag_coeff!r} not within rtol {CONFIG1_DRAG_RTOL} of {ref['drag_coeff']!r}")
     if total > 2 * ref["total_krylov_iters"]:
@@ -1482,19 +1648,32 @@ def matrix_run(device, fields, cfg):
     return {"history": s.history, "fields": s.fields(), "forces": forces, "wall_s": time.perf_counter() - t0}
 
 
-def phase_matrix(device, cpu_side):
+def matrix_card(device):
+    """The card side of the matrix phase, as plain data: every ``MATRIX``
+    run, the ``MATRIX_TANGENT`` solves, every ``MATRIX_CARD_ONLY`` run and
+    the wall."""
+    t0 = time.perf_counter()
+    return {
+        "card": [matrix_run(device, fields, cfg) for _, fields, cfg in MATRIX],
+        "tangent": matrix_tangent_run(device),
+        "card_only": [matrix_run(device, fields, cfg) for _, fields, cfg in MATRIX_CARD_ONLY],
+        "wall_s": time.perf_counter() - t0,
+    }
+
+
+def phase_matrix(device, cpu_side, card_side=None):
     """``MATRIX`` on the card and on the CPU (the plain versions; ``cpu_side``:
-    the future of ``cpu_job("matrix")``), all-f64: Newton histories equal,
-    Krylov counts per solve within 1, drag and lift within rtol 1e-7 (the
-    lift floored at 1e-7 of the drag), fields within 1e-6 of their
+    the future of ``cpu_job("matrix")``; ``card_side``: the future of
+    ``card_job("matrix")``, by default run here), all-f64: Newton histories
+    equal, Krylov counts per solve within 1, drag and lift within rtol 1e-7
+    (the lift floored at 1e-7 of the drag), fields within 1e-6 of their
     magnitude.  Then ``MATRIX_TANGENT`` (card vs CPU) and
     ``MATRIX_CARD_ONLY``."""
     import numpy as np
 
     key = lambda h: (h["phase"], h["nu"], h["n_iter"])
-    t_all = time.perf_counter()
-    card = [matrix_run(device, fields, cfg) for _, fields, cfg in MATRIX]
-    card_tangent = matrix_tangent_run(device)
+    got = matrix_card(device) if card_side is None else card_side.result()
+    card, card_tangent = got["card"], got["tangent"]
     cpu, cpu_tangent = cpu_side.result()
     for (name, _, _), g, c in zip(MATRIX, card, cpu):
         gf, cf = g["forces"], c["forces"]
@@ -1521,14 +1700,13 @@ def phase_matrix(device, cpu_side):
             raise RuntimeError(f"matrix tangent {name}: iterations/flags differ: card {(gi, gf)}, CPU {(ci, cf)}")
         if not (abs(gr - cr) <= 1e-10 * abs(cr) and err <= 1e-10):
             raise RuntimeError(f"matrix tangent {name}: card and CPU differ beyond 1e-10")
-    for name, fields, cfg in MATRIX_CARD_ONLY:
-        run = matrix_run(device, fields, cfg)
+    for (name, _, _), run in zip(MATRIX_CARD_ONLY, got["card_only"], strict=True):
         (u, p), forces = run["fields"], run["forces"]
         counts = [h.get("krylov_iters", 0) for h in solves_of(run)]
         print(f"[matrix] {name} (card only): wall {run['wall_s']:.2f} s, Krylov counts per solve {counts}, drag and lift {forces}")
         if not (np.isfinite(u).all() and np.isfinite(p).all() and np.isfinite(forces).all()) or sum(counts) <= 0:
             raise RuntimeError(f"matrix {name}: no finite converged solve on the card")
-    print(f"[matrix] {len(MATRIX)} whole-solve entries, {len(MATRIX_TANGENT)} tangent solves and {len(MATRIX_CARD_ONLY)} card-only solves at {MATRIX_MESH[0]}x{MATRIX_MESH[1]} in {time.perf_counter() - t_all:.1f} s")
+    print(f"[matrix] {len(MATRIX)} whole-solve entries, {len(MATRIX_TANGENT)} tangent solves and {len(MATRIX_CARD_ONLY)} card-only solves at {MATRIX_MESH[0]}x{MATRIX_MESH[1]} in {got['wall_s']:.1f} s on the card")
 
 
 def matrix_tangent_run(device):
@@ -1565,7 +1743,8 @@ def matrix_tangent_run(device):
 
 def phase_profile(device):
     """A small CLI solve with ``--profile-dir``: the trace file must exist
-    and name both kernels.  Written under the git-ignored ``_chip/`` and
+    and name the one-launch apply_F's kernel, and neither kernel it
+    replaced on the solve paths.  Written under the git-ignored ``_chip/`` and
     removed after the check."""
     import shutil
 
@@ -1582,11 +1761,13 @@ def phase_profile(device):
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
         size = os.path.getsize(path)
         shutil.rmtree(d)
-        found = {k: any(k in n for n in names) for k in ("cell_apply_f_kernel", "scatter_v_kernel")}
+        found = {k: any(k in n for n in names) for k in ("apply_f_fused_kernel", "cell_apply_f_kernel", "scatter_v_kernel")}
         print(f"[profile] --profile-dir trace {size} bytes, {len(names)} distinct event names; kernels found {json.dumps(found)}")
-        if all(found.values()):
+        if found["cell_apply_f_kernel"] or found["scatter_v_kernel"]:
+            raise RuntimeError(f"the --profile-dir trace names a kernel the solve paths no longer launch: {found}")
+        if found["apply_f_fused_kernel"]:
             return
-    raise RuntimeError(f"the --profile-dir trace does not name both kernels in {PROFILE_ATTEMPTS} runs: {found}")
+    raise RuntimeError(f"the --profile-dir trace does not name apply_f_fused_kernel in {PROFILE_ATTEMPTS} runs: {found}")
 
 
 # ---------------------------------------------------------------------------
@@ -1597,7 +1778,8 @@ def phase_profile(device):
 def simplex_run(device, unsteady, fields, cfg):
     """One ``-M`` run at ``SIMPLEX_CHECK_MESH``, Re 20, FGMRES +
     blockTriangular, all-f64 -- the stationary continuation (tol 1e-8) or
-    two unsteady steps with the per-step ramp (tol 1e-9) -- as plain data:
+    ``SIMPLEX_CHECK_STEPS`` unsteady steps with the per-step ramp (tol
+    1e-9) -- as plain data:
     DoFs, history, host fields, (drag, lift) per solve or step."""
     from navier_stokes_solver_tpu_torch.api import NSSolver, NSSolverStationary, SolverOptions
     from navier_stokes_solver_tpu_torch.precond import PrecondConfig
@@ -1608,7 +1790,7 @@ def simplex_run(device, unsteady, fields, cfg):
         precond_config=PrecondConfig(vmult_dtype=None, mg_dtype=None, **cfg),
     )
     if unsteady:
-        s = NSSolver(SolverOptions(**o, tolerance=1e-9, time_span=2 * UNSTEADY_DT, time_step=UNSTEADY_DT,
+        s = NSSolver(SolverOptions(**o, tolerance=1e-9, time_span=SIMPLEX_CHECK_STEPS * UNSTEADY_DT, time_step=UNSTEADY_DT,
                                    **fields)).setup()
         s.solve()
         forces = [(h["drag_coeff"], h["lift_coeff"]) for h in steps_of(s)]
@@ -1660,6 +1842,7 @@ def cpu_job(name):
     import torch
 
     torch.set_num_threads(CPU_SIDE_THREADS)
+    os.setpriority(os.PRIO_PROCESS, 0, CPU_SIDE_NICE)
     cpu = torch.device("cpu")
     if name == "unsteady-check":
         return unsteady_check_run(cpu)
@@ -1683,9 +1866,10 @@ def cpu_job(name):
     raise ValueError(f"no CPU side named {name!r}")
 
 
-# the card-vs-CPU phases whose card sides run in ensemble-matrix's worker
-# processes on the card, after its combinations (``card_job``)
-CARD_SIDES = ("fused-check", "ensemble-check", "ensemble-matrix-check", "ensemble-rest-check")
+# the card-vs-CPU phases, whose card sides run in the worker processes on the
+# card after ensemble-matrix's combinations (``card_job``), in this order
+CARD_SIDES = ("unsteady-check", "matrix", "simplex-check", "cavity-check", "fused-check", "ensemble-check",
+              "ensemble-matrix-check", "ensemble-rest-check")
 
 
 def card_job(name):
@@ -1696,6 +1880,14 @@ def card_job(name):
 
     torch.set_num_threads(1)
     device = torch.device("cuda")
+    if name == "unsteady-check":
+        return unsteady_check_run(device)
+    if name == "matrix":
+        return matrix_card(device)
+    if name == "simplex-check":
+        return simplex_check_card(device)
+    if name == "cavity-check":
+        return cavity_check_run(device)
     if name == "fused-check":
         return fused_check_card(device)
     if name == "ensemble-check":
@@ -1707,36 +1899,65 @@ def card_job(name):
     raise ValueError(f"no card side named {name!r}")
 
 
-def cpu_pool(workers):
+def cpu_pool(workers, initializer=None):
     """Spawned worker processes for ``cpu_job``, ``card_job`` and
     ``ensemble_matrix_run`` (joined when the ``with`` block that holds the
     pool ends)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    return ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+    return ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=initializer)
 
 
-def phase_simplex_check(device, cpu_side=None):
-    """``SIMPLEX_CHECK`` and ``SIMPLEX_TANGENT`` on the card against the same
-    on the CPU (``cpu_side``: the future of ``cpu_job("simplex-check")``; by
-    default one worker process started here)."""
-    import numpy as np
+def wait_asleep():
+    """Make a card worker wait for the card asleep
+    (``cudaDeviceScheduleBlockingSync``, set before the card is first used),
+    as the decomposed ranks do: several processes drive the card at once,
+    and a spinning wait holds a host core the others need.  Nothing to set
+    where PyTorch has no CUDA runtime."""
+    import ctypes
 
-    if cpu_side is None:
-        with cpu_pool(1) as pool:
-            return phase_simplex_check(device, pool.submit(cpu_job, "simplex-check"))
-    key = lambda h: (h["phase"], h["nu"], h["n_iter"])
+    import torch  # loads the CUDA runtime it was built with
+
+    if not torch.cuda.is_available():
+        return
+    try:
+        cudart = ctypes.CDLL("libcudart.so.12")
+    except OSError:
+        return
+    cudart.cudaSetDeviceFlags(4)
+
+
+def simplex_check_card(device):
+    """The card side of simplex-check, as plain data: every ``SIMPLEX_CHECK``
+    run and its wall, the ``SIMPLEX_TANGENT`` solves and the whole wall."""
     t_all = time.perf_counter()
     card, walls = [], []
     for _, unsteady, fields, cfg in SIMPLEX_CHECK:
         t0 = time.perf_counter()
         card.append(simplex_run(device, unsteady, fields, cfg))
         walls.append(time.perf_counter() - t0)
-    card_tangent = [simplex_tangent_run(device, dense, n) for dense, n, _ in SIMPLEX_TANGENT.values()]
-    t_card = time.perf_counter() - t_all
+    tangent = [simplex_tangent_run(device, dense, n) for dense, n, _ in SIMPLEX_TANGENT.values()]
+    return {"card": card, "walls": walls, "tangent": tangent, "wall_s": time.perf_counter() - t_all}
+
+
+def phase_simplex_check(device, cpu_side=None, card_side=None):
+    """``SIMPLEX_CHECK`` and ``SIMPLEX_TANGENT`` on the card against the same
+    on the CPU (``cpu_side``: the future of ``cpu_job("simplex-check")``; by
+    default one worker process started here; ``card_side``: the future of
+    ``card_job("simplex-check")``, by default run here)."""
+    import numpy as np
+
+    if cpu_side is None:
+        with cpu_pool(1) as pool:
+            return phase_simplex_check(device, pool.submit(cpu_job, "simplex-check"), card_side)
+    key = lambda h: (h["phase"], h["nu"], h["n_iter"])
+    t_all = time.perf_counter()
+    got = simplex_check_card(device) if card_side is None else card_side.result()
+    card, walls, card_tangent = got["card"], got["walls"], got["tangent"]
     cpu, cpu_tangent = cpu_side.result()
-    print(f"[simplex-check] card side {t_card:.1f} s; waited {time.perf_counter() - t_all - t_card:.1f} s more for the CPU side (worker process, {CPU_SIDE_THREADS} threads)")
+    print(f"[simplex-check] card side {got['wall_s']:.1f} s; waited {time.perf_counter() - t_all:.1f} s here for both sides (CPU side: worker process, {CPU_SIDE_THREADS} threads)")
     for (name, unsteady, _, _), g, c, wall in zip(SIMPLEX_CHECK, card, cpu, walls):
         sg, sc = solves_of(g), solves_of(c)
         counts = [(hg["krylov_iters"], hc["krylov_iters"]) for hg, hc in zip(sg, sc)]
@@ -1761,7 +1982,7 @@ def phase_simplex_check(device, cpu_side=None):
             raise RuntimeError(f"simplex tangent {name}: iterations/flags differ: card {(gi, gf)}, CPU {(ci, cf)}")
         if not (abs(gr - cr) <= gate * abs(cr) and err <= gate):
             raise RuntimeError(f"simplex tangent {name}: card and CPU differ beyond {gate}")
-    print(f"[simplex-check] {len(SIMPLEX_CHECK)} whole runs and {len(SIMPLEX_TANGENT)} capped tangent solves at -M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]} in {time.perf_counter() - t_all:.1f} s")
+    print(f"[simplex-check] {len(SIMPLEX_CHECK)} whole runs and {len(SIMPLEX_TANGENT)} capped tangent solves at -M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]} in {got['wall_s']:.1f} s on the card")
 
 
 def unsteady_cli(device, argv, tag):
@@ -1998,9 +2219,7 @@ def phase_fused_main(su):
     u, _ = su.fields()
     if not np.isfinite(u).all():
         raise RuntimeError("fused-main: non-finite velocity")
-    for name, c in counts.items():
-        if c["launches"] <= 0:
-            raise RuntimeError(f"the fused path never launched {name}")
+    check_path_launches(counts, "the fused path")
     return {"wall_s": wall, "steps": steps, "counts": counts}
 
 
@@ -2075,10 +2294,13 @@ def ensemble_kernel_check(disc, nus, linq, x, bc, name, errs):
     """One shape of phase 21's checks: the 32-bit index check over the
     batched operands, each batched launch against its plain version and,
     bit for bit, against B unbatched launches and the same launch on a
-    permuted lattice layout; the largest errors go into ``errs``."""
+    permuted lattice layout; ``apply_F_fused`` also bit for bit against the
+    two batched launches it replaced; the largest errors go into
+    ``errs``."""
     import torch
 
-    from navier_stokes_solver_tpu_torch.ops import LinearizationQ
+    from navier_stokes_solver_tpu_torch.ops import LinearizationQ, apply_f_kernel
+    from navier_stokes_solver_tpu_torch.ops.apply_f_kernel import apply_F_fused, apply_F_fused_plain
     from navier_stokes_solver_tpu_torch.ops.cell_kernel import cell_apply_F_lattice, cell_apply_F_lattice_plain
     from navier_stokes_solver_tpu_torch.ops.lattice import lattice_view
     from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
@@ -2134,6 +2356,30 @@ def ensemble_kernel_check(disc, nus, linq, x, bc, name, errs):
             print(f"[ensemble-kernels] scatter_v_bc (batched, {what}) {tag}: max|kernel-plain| {e!r}, bitwise equal {torch.equal(g, w)}; members bit-identical to their unbatched launch {same} of {B}")
             if e != 0.0 or not torch.equal(g, w) or same != B:
                 raise RuntimeError(f"scatter_v_bc (batched, {what}) is not bit-identical at {tag}")
+        for b_, xx, what in ((None, x, "raw"), (bc, x, "bc"), (None, x_perm, "raw, permuted x"), (bc, x_perm, "bc, permuted x")):
+            g = apply_F_fused(disc, nus, KERNEL_INV_DT, lq, xx, stokes=stokes, bc_diag=b_)
+            two = scatter_v_bc(disc, cell_apply_F_lattice(disc, nus, KERNEL_INV_DT, lq, xx, stokes=stokes), bc_diag=b_, x_u=xx)
+            w = apply_F_fused_plain(disc, nus, KERNEL_INV_DT, lq, xx, stokes=stokes, bc_diag=b_)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(g).all()):
+                raise RuntimeError(f"apply_F_fused (batched, {what}): non-finite output at {tag}")
+            err = (g - w).abs()
+            bad = int((err > tol + tol * w.abs()).sum())
+            e = float(err.max())
+            errs["apply_F_fused"] = max(errs["apply_F_fused"], e)
+            same = sum(
+                torch.equal(g[b], apply_F_fused(
+                    disc, nu_h[b], KERNEL_INV_DT, None if stokes else members[b], xx[b].contiguous(),
+                    stokes=stokes, bc_diag=None if b_ is None else b_[b]))
+                for b in range(B)
+            )
+            shapes = [torch.equal(apply_f_kernel._launch(disc, nus, KERNEL_INV_DT, lq, xx, b_, stokes, (B,), shape), g)
+                      for shape in range(len(apply_f_kernel.BLOCK_SHAPES[disc.deg_v]))]
+            print(f"[ensemble-kernels] apply_F_fused (batched, {what}) {tag}: bitwise equal to the two batched launches {torch.equal(g, two)}, at each block shape {shapes}; max|kernel-plain| {e:.3e} (max|plain| {float(w.abs().max()):.3e}), {bad} entries outside rtol=atol={tol:g}; members bit-identical to their unbatched launch {same} of {B}")
+            if not torch.equal(g, two) or same != B or not all(shapes):
+                raise RuntimeError(f"apply_F_fused (batched, {what}) is not bit-identical at {tag}")
+            if bad:
+                raise RuntimeError(f"apply_F_fused (batched, {what}) disagrees with its plain version at {tag}")
 
 
 def phase_ensemble_kernels(device):
@@ -2144,17 +2390,20 @@ def phase_ensemble_kernels(device):
     host-inclusive time, the plain version's, the library call's (a
     batched matmul of the per-member Stokes element matrices;
     ``index_add_`` of all members) and the bound (``cell_apply_cost`` /
-    ``scatter_cost`` over B members: the shared operands counted once).
+    ``scatter_cost`` over B members: the shared operands counted once), and
+    ``apply_F_fused``'s with its rows beside the two batched launches it
+    replaced (its yardstick: the batched matmul plus ``index_add_``).
     Returns ``(max errors, {kernel: {tag: record}})``."""
     import torch
 
+    from navier_stokes_solver_tpu_torch.ops.apply_f_kernel import apply_F_fused, apply_F_fused_plain
     from navier_stokes_solver_tpu_torch.ops.cell_kernel import cell_apply_F_lattice, cell_apply_F_lattice_plain
     from navier_stokes_solver_tpu_torch.ops.lattice import _gather_v, lattice_view
     from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc, scatter_v_bc_plain
 
     B, (mx, my) = ENSEMBLE_B, ENSEMBLE_MESH
-    errs = {"cell_apply_F": 0.0, "scatter_v_bc": 0.0}
-    times = {"cell_apply_F": {}, "scatter_v_bc": {}}
+    errs = dict.fromkeys(KERNELS, 0.0)
+    times = {name: {} for name in KERNELS}
     from navier_stokes_solver_tpu_torch.precond.mg import mg_level_shapes
 
     levels = mg_level_shapes(ensemble_disc(device, ENSEMBLE_MESH, torch.float32))
@@ -2179,7 +2428,7 @@ def phase_ensemble_kernels(device):
             K = Dx.T @ (disc.w_q[:, None] * Dx) + Dy.T @ (disc.w_q[:, None] * Dy)
             Kb = nus[:, None, None] * K
             xl = _gather_v(disc, x).reshape(K.shape[0], B, -1).transpose(0, 1).contiguous()
-            rec["library_ms"] = device_ms(lambda: torch.matmul(Kb, xl))
+            rec["library_ms"] = matmul_ms = device_ms(lambda: torch.matmul(Kb, xl))
         rec["bound_ms"], rec["bound_by"] = bound(*cell_apply_cost(disc, stokes, B))
         tag = f"{mx}x{my} Q2/Q1 float32 B{B} {'stokes' if stokes else 'newton'}"
         times["cell_apply_F"][tag] = rec
@@ -2199,6 +2448,23 @@ def phase_ensemble_kernels(device):
     tag = f"{mx}x{my} Q2/Q1 float32 B{B} bc"
     times["scatter_v_bc"][tag] = rec
     print(f"[time] scatter_v_bc {tag}: {json.dumps(rec)}")
+    index_add_ms = rec["library_ms"]
+    for stokes in (True, False):
+        args = (disc, nus, KERNEL_INV_DT, None if stokes else linq, x)
+        fused = lambda: apply_F_fused(*args, stokes=stokes, bc_diag=bc)
+        two = lambda: scatter_v_bc(disc, cell_apply_F_lattice(*args, stokes=stokes), bc_diag=bc, x_u=x)
+        rec = {
+            "ms": device_ms(fused),
+            "host_ms": host_ms(fused),
+            "plain_ms": device_ms(lambda: apply_F_fused_plain(*args, stokes=stokes, bc_diag=bc), PLAIN_CALLS),
+            "two_launch_ms": device_ms(two),
+            "two_launch_host_ms": host_ms(two),
+            "library_ms": matmul_ms + index_add_ms if stokes else None,
+        }
+        rec["bound_ms"], rec["bound_by"] = bound(*apply_f_fused_cost(disc, stokes, True, B))
+        tag = f"{mx}x{my} Q2/Q1 float32 B{B} {'stokes' if stokes else 'newton'} bc"
+        times["apply_F_fused"][tag] = rec
+        print(f"[time] apply_F_fused {tag}: {json.dumps(rec)}")
     return errs, times
 
 
@@ -2356,9 +2622,7 @@ def phase_ensemble_main(device):
     if tuple(u.shape) != (B, 2) + disc.NV or not bool(torch.isfinite(u).all() and torch.isfinite(ts.solution.p).all()):
         raise RuntimeError("ensemble-main: the final fields are not finite or have the wrong shape")
     print(f"[ensemble-main] {mx}x{my} Q2/Q1, {n_dofs} DoFs per member, B {B} ({B * n_dofs} DoFs), Re {ENSEMBLE_RE[0]:g}..{ENSEMBLE_RE[1]:g}: timed step walls {timed} s, median {t_b!r} s, {rate!r} member-steps/s ({card}); launches {json.dumps(counts)}")
-    for name, c in counts.items():
-        if c["launches"] <= 0:
-            raise RuntimeError(f"the ensemble path never launched {name}")
+    check_path_launches(counts, "the ensemble path")
     # the B = 1 control: member B//2 after the warm-up, the same timed steps
     m = B // 2
     one = TimeState(*(type(f)(*(t[m].contiguous() for t in f)) if isinstance(f, tuple) else f[m].contiguous()
@@ -2439,7 +2703,7 @@ def ensemble_matrix_run(index):
     Q2/Q1, B = 64, Re 20..100, dt 0.01, tol 1e-9, ``newton_max`` 3,
     ``krylov_maxiter`` 200, f32 preconditioner, the reference's sign) on the
     card, as plain data, for a worker process: ``ENSEMBLE_MATRIX_STEPS``
-    steps (``ENSEMBLE_MATRIX_A_STEPS`` for (a)) from rest through ``ensemble.make_ensemble_step``, the kernel
+    steps from rest through ``ensemble.make_ensemble_step``, the kernel
     counts zeroed just before the first step and read just after the last.
     Per step: wall, member-steps/s, each member's Newton count, Krylov total
     and final residual, drag and lift, the members BiCGStab marked failed
@@ -2464,7 +2728,7 @@ def ensemble_matrix_run(index):
     steps = []
     try:
         reset_counts()
-        for _ in range(ENSEMBLE_MATRIX_A_STEPS if index == 0 else ENSEMBLE_MATRIX_STEPS):
+        for _ in range(ENSEMBLE_MATRIX_STEPS):
             del calls[:]
             t0 = time.perf_counter()
             ts = step(ts, nus, dt)
@@ -2492,20 +2756,20 @@ def ensemble_matrix_run(index):
 
 
 def start_ensemble_matrix(pool):
-    """Submit every combination of ``ENSEMBLE_MATRIX`` to ``pool``
-    (``ENSEMBLE_MATRIX_WORKERS`` spawned processes on the card): (a) takes
-    one, the others run after each other in the second.  The futures of
-    their ``ensemble_matrix_run``."""
-    return [pool.submit(ensemble_matrix_run, i) for i in range(len(ENSEMBLE_MATRIX))]
+    """Submit every combination of ``ENSEMBLE_MATRIX_WIDTH`` to ``pool``
+    (``CARD_WORKERS`` spawned processes on the card), each as a worker
+    is free.  The futures of their ``ensemble_matrix_run``."""
+    return [pool.submit(ensemble_matrix_run, i) for i in ENSEMBLE_MATRIX_WIDTH]
 
 
 def phase_ensemble_matrix(device, runs=None):
-    """Every combination of ``ENSEMBLE_MATRIX`` at config 5's width
+    """Every combination of ``ENSEMBLE_MATRIX_WIDTH`` at config 5's width
     (``runs``: the futures of ``start_ensemble_matrix``; by default its
     worker processes started here).  The card idles most of the time under
     this host-bound path, so the combinations run in worker processes
-    beside other work -- in ``main``, beside the card-vs-CPU phases -- and
-    their walls are measured while that work shares the card and the host.
+    beside other work -- in ``main``, beside the timed paths from phase 11
+    on -- and their walls are measured while that work shares the card and
+    the host.
     Gates: finite drag, lift and fields for every member; each member's
     final residual at or below 1e-9, or the member at the Newton cap, or
     stopped by the step's stagnation break -- the latter two listed; both
@@ -2513,13 +2777,13 @@ def phase_ensemble_matrix(device, runs=None):
     import numpy as np
 
     if runs is None:
-        with cpu_pool(ENSEMBLE_MATRIX_WORKERS) as pool:
+        with cpu_pool(CARD_WORKERS) as pool:
             return phase_ensemble_matrix(device, start_ensemble_matrix(pool))
     card = nvidia_smi()
     B, (mx, my) = ENSEMBLE_B, ENSEMBLE_MESH
     runs = [r.result() for r in runs]
     out = {}
-    for (label, _, _, _), run in zip(ENSEMBLE_MATRIX, runs, strict=True):
+    for (label, _, _, _), run in zip([ENSEMBLE_MATRIX[i] for i in ENSEMBLE_MATRIX_WIDTH], runs, strict=True):
         steps, counts = run["steps"], run["counts"]
         for rec in steps:
             n, res = np.asarray(rec["newton_iters"]), np.asarray(rec["final_residual"])
@@ -2535,10 +2799,8 @@ def phase_ensemble_matrix(device, runs=None):
                 raise RuntimeError(f"ensemble-matrix: ({label}) step {rec['step']}: non-finite drag or lift")
         if not run["fields_finite"]:
             raise RuntimeError(f"ensemble-matrix: ({label}) the final fields are not finite")
-        print(f"[ensemble-matrix] ({label}) {mx}x{my} Q2/Q1, B {B}, Re {ENSEMBLE_RE[0]:g}..{ENSEMBLE_RE[1]:g}: step walls {[r['wall_s'] for r in steps]} s ({card}; measured in {ENSEMBLE_MATRIX_WORKERS} worker processes beside the card-vs-CPU phases); launches {json.dumps(counts)}")
-        for name, c in counts.items():
-            if c["launches"] <= 0:
-                raise RuntimeError(f"ensemble-matrix: ({label}) never launched {name}")
+        print(f"[ensemble-matrix] ({label}) {mx}x{my} Q2/Q1, B {B}, Re {ENSEMBLE_RE[0]:g}..{ENSEMBLE_RE[1]:g}: step walls {[r['wall_s'] for r in steps]} s ({card}; measured in one of {CARD_WORKERS} worker processes on the card beside the -M phases); launches {json.dumps(counts)}")
+        check_path_launches(counts, f"ensemble-matrix: ({label})")
         out[label] = run
     return out
 
@@ -2653,7 +2915,7 @@ def phase_ensemble_ir(device, main):
     stagnation break above the tolerance (listed) -- then one profiled
     window of outer iterations.  Gates: finite drag and lift for every
     member, each member's residual at or below 1e-9 or the member listed,
-    both kernels launched."""
+    apply_F_fused launched and the other two not."""
     import numpy as np
     import torch
 
@@ -2712,9 +2974,7 @@ def phase_ensemble_ir(device, main):
     timed = [r["wall_s"] for r in steps[1:]]
     t_b = statistics.median(timed)
     print(f"[ensemble-ir] {mx}x{my} Q2/Q1, B {B}, Re {ENSEMBLE_RE[0]:g}..{ENSEMBLE_RE[1]:g}, f32 GMRES-IR cycles: timed step walls {timed} s, median {t_b!r} s, {B / t_b!r} member-steps/s (ensemble-main, the same without the cycles: {main['median_step_s']!r} s, {main['member_steps_per_s']!r} member-steps/s; {card}); launches {json.dumps(counts)}")
-    for name, c in counts.items():
-        if c["launches"] <= 0:
-            raise RuntimeError(f"the ensemble's GMRES-IR path never launched {name}")
+    check_path_launches(counts, "the ensemble's GMRES-IR path")
     per = ensemble_outer_profile(disc, nus, ts, cfg, dt)
     print(f"[ensemble-ir-outer] per outer iteration of the batched tangent solve with f32 cycles (B {B}, profiled): {json.dumps(per)}")
     base = main["outer"]
@@ -2732,8 +2992,8 @@ def phase_ensemble_simplex_lu(device, s):
     (count, build and factor seconds), each member's Newton iterations and
     outers; the peak device memory.  Gates: member 0's drag per step within
     rtol 1e-7 of config3-lu-fused's first steps and its Newton iterations
-    equal; finite drag and lift for every member; both kernels launched 0
-    times (the simplex path runs none)."""
+    equal; finite drag and lift for every member; none of the three kernels
+    launched (the simplex path runs none)."""
     import numpy as np
     import torch
 
@@ -2823,11 +3083,10 @@ def phase_cavity_kernels(device):
     print(f"[cavity-kernels] the cavity's multigrid chain: {shapes}")
     if shapes != CAVITY_CHAIN:
         raise RuntimeError(f"cavity-kernels: the chain is {shapes}, not {CAVITY_CHAIN}")
-    errs = {"cell_apply_F": 0.0, "scatter_v_bc": 0.0}
+    errs = dict.fromkeys(KERNELS, 0.0)
     for mesh in shapes:
         for dtype in (torch.float32, torch.float64):
-            a, b = check_shape(device, mesh, (2, 1), dtype, make_cavity_geometry, "cavity ")
-            errs = {"cell_apply_F": max(errs["cell_apply_F"], a), "scatter_v_bc": max(errs["scatter_v_bc"], b)}
+            errs = fold_errs(errs, check_shape(device, mesh, (2, 1), dtype, make_cavity_geometry, "cavity "))
     return errs, time_shape(device, CAVITY_MESH, (2, 1), make_cavity_geometry, "cavity ")
 
 
@@ -2848,7 +3107,7 @@ def cavity_solver(device, mesh, cfg=None, forcing=None):
 
 def record_solves(s):
     """Per tangent solve of solver ``s`` from here on: Stokes or Newton,
-    outers, wall, and (on the card) both kernels' launches."""
+    outers, wall, and (on the card) the kernels' launches."""
     import torch
 
     out, solve = [], s.solve_system
@@ -2915,9 +3174,7 @@ def phase_cavity_ghia(device):
         raise RuntimeError(f"cavity-ghia: final Newton residual {final} > {s.NEWTON_TOL}")
     if not (err_u < GHIA_GATE and err_v < GHIA_GATE):
         raise RuntimeError(f"cavity-ghia: centerline deviations {err_u}, {err_v} not below {GHIA_GATE}")
-    for name, c in counts.items():
-        if c["launches"] <= 0:
-            raise RuntimeError(f"the cavity path never launched {name}")
+    check_path_launches(counts, "the cavity path")
     return s, {"wall_s": wall, "setup_s": s.setup_seconds, "solves": solves, "final_residual": final,
                "ghia": (err_u, err_v), "counts": counts}
 
@@ -2964,9 +3221,7 @@ def phase_cavity_cli(device):
         raise RuntimeError("cavity-cli: the VTU fields are not fields() at the cell corners")
     if len(calls) < 2 or not np.isfinite(u).all():
         raise RuntimeError(f"cavity-cli: {len(calls)} output() calls, finite fields {np.isfinite(u).all()}")
-    for name, c in counts.items():
-        if c["launches"] <= 0:
-            raise RuntimeError(f"the cavity CLI path never launched {name}")
+    check_path_launches(counts, "the cavity CLI path")
     return s, {"wall_s": s.solve_seconds, "outer": per_solve, "output_calls": len(calls), "counts": counts}
 
 
@@ -2983,16 +3238,18 @@ def cavity_check_run(device):
     return {"outer": [r["outer"] for r in solves], "fields": (u, p - p.mean()), "wall_s": time.perf_counter() - t0}
 
 
-def phase_cavity_check(device, cpu_side=None):
+def phase_cavity_check(device, cpu_side=None, card_side=None):
     """A forced 32x32 Q2/Q1 cavity at Re 100 on the card against the CPU
-    (``cpu_side``: the future of ``cpu_job("cavity-check")``): outers within
-    1 per tangent solve, fields within 1e-6 of their magnitude."""
+    (``cpu_side``: the future of ``cpu_job("cavity-check")``; ``card_side``:
+    the future of ``card_job("cavity-check")``, by default run here): outers
+    within 1 per tangent solve, fields within 1e-6 of their magnitude."""
     import numpy as np
 
     if cpu_side is None:
         with cpu_pool(1) as pool:
-            return phase_cavity_check(device, pool.submit(cpu_job, "cavity-check"))
-    g, c = cavity_check_run(device), cpu_side.result()
+            return phase_cavity_check(device, pool.submit(cpu_job, "cavity-check"), card_side)
+    g = cavity_check_run(device) if card_side is None else card_side.result()
+    c = cpu_side.result()
     for where, r in (("card", g), ("CPU", c)):
         print(f"[cavity-check] {CAVITY_CHECK_MESH[0]}x{CAVITY_CHECK_MESH[1]} Q2/Q1 Re {CAVITY_RE:g} with a body force on the {where}: wall {r['wall_s']!r} s, outers per tangent solve {r['outer']}")
     if len(g["outer"]) != len(c["outer"]):
@@ -3121,20 +3378,19 @@ def tile_kernel_checks(tile, dtype):
     the card, in step with the other ranks: {kernel: largest |kernel -
     plain|, "shapes": the levels checked}.  Launches made here are not the
     step's (its counts were read before)."""
-    err = {"cell_apply_F": 0.0, "scatter_v_bc": 0.0, "shapes": []}
+    err, shapes = dict.fromkeys(KERNELS, 0.0), []
     d = tile.to(dtype)
     while d is not None:
         shape = f"tile ({d.halo_iy}, {d.halo_ix}) {d.nx}x{d.ny} Q{d.deg_v}/Q{d.deg_p} {str(dtype)[6:]}"
-        a, b = check_disc(*kernel_inputs(d), shape, log=lambda line: None)
-        err["cell_apply_F"], err["scatter_v_bc"] = max(err["cell_apply_F"], a), max(err["scatter_v_bc"], b)
-        err["shapes"].append(f"{d.nx}x{d.ny}")
+        err = fold_errs(err, check_disc(*kernel_inputs(d), shape, log=lambda line: None))
+        shapes.append(f"{d.nx}x{d.ny}")
         d = None if d.mg is None else d.mg.coarse
-    return err
+    return {**err, "shapes": shapes}
 
 
 def dd_step_rank(rank, devices, mesh, degrees, Re, cfg, tol, dd):
     """One rank of ``dd_step_run`` under ``dd`` (spawned by
-    ``dist.launch``), then on its tile and process group: both kernels
+    ``dist.launch``), then on its tile and process group: the kernels
     against their plain versions at every level of the tile's chain in the
     dtype the step's multigrid ran (``tile_kernel_checks``), and a seeded
     global field (the same on every rank) through ``tile_blocks`` and back
@@ -3163,10 +3419,12 @@ def dd_step_rank(rank, devices, mesh, degrees, Re, cfg, tol, dd):
 def print_tile_checks(tag, ranks):
     """The tile kernel checks of every rank (``dd_step_rank``): their
     largest errors, folded as ``phase_check``'s."""
-    errs = {k: max(r["tile_checks"][k] for r in ranks) for k in ("cell_apply_F", "scatter_v_bc")}
-    print(f"[{tag}] both kernels against their plain versions on every rank's tile, at every level of its chain "
+    errs = {k: max(r["tile_checks"][k] for r in ranks) for k in KERNELS}
+    print(f"[{tag}] the kernels against their plain versions on every rank's tile, at every level of its chain "
           f"{ranks[0]['tile_checks']['shapes']} (cell_apply_F Stokes and Newton, three entries, within "
-          f"{json.dumps(KERNEL_TOL)}; scatter_v_bc with and without bc_diag, seam sum and rows, bit for bit): "
+          f"{json.dumps(KERNEL_TOL)}; scatter_v_bc with and without bc_diag, seam sum and rows, bit for bit; "
+          f"apply_F_fused with and without bc_diag, on both lattice layouts, seam sum and rows, bit for bit "
+          f"against the two launches and within {json.dumps(KERNEL_TOL)} of its plain version): "
           f"max|kernel-plain| {json.dumps(errs)}")
     return errs
 
@@ -3225,9 +3483,7 @@ def dd_compare(tag, one, ranks, *, drag_tol, field_tol, newton=True):
         if not max(gaps["u"], gaps["p"]) <= field_tol:
             raise RuntimeError(f"{tag}: fields {gaps['u']!r} / {gaps['p']!r} apart (> {field_tol})")
     for r, rec in enumerate(ranks):
-        for name, c in rec["counts"].items():
-            if c["launches"] <= 0:
-                raise RuntimeError(f"{tag}: rank {r} never launched {name}")
+        check_path_launches(rec["counts"], f"{tag}: rank {r}")
     return gaps, summed_counts(r["counts"] for r in ranks)
 
 
@@ -3272,14 +3528,13 @@ def phase_dd_check(device):
         sweep = sweep.result()
         one, ref_hist, ref_fields = ref.result()[0]
     print(f"[dd-check] one rank: {DD_CHECK_MESH[0]}x{DD_CHECK_MESH[1]} Q2/Q1 host step, wall {one['wall_s']!r} s, Krylov per solve {one['krylov']}, drag {one['drag']!r}")
-    out = {"counts": [], "errs": {"cell_apply_F": 0.0, "scatter_v_bc": 0.0}}
+    out = {"counts": [], "errs": dict.fromkeys(KERNELS, 0.0)}
     for dd, (ranks, wall) in zip(DD_CHECK_TILES, runs):
         n = dd[0] * dd[1]
         gaps, counts = dd_compare(f"dd-check {dd}", one, ranks, drag_tol=1e-8, field_tol=1e-7)
         if not all(r["round_trip"] for r in ranks):
             raise RuntimeError(f"dd-check {dd}: the tile round trip on the card is not bit for bit")
-        for k, e in print_tile_checks(f"dd-check {dd[0]} x {dd[1]}", ranks).items():
-            out["errs"][k] = max(out["errs"][k], e)
+        out["errs"] = fold_errs(out["errs"], print_tile_checks(f"dd-check {dd[0]} x {dd[1]}", ranks))
         print(f"[dd-check] {dd[0]} x {dd[1]} tiles ({n} ranks on {card}, gloo, beside the other decomposed runs): step wall {ranks[0]['wall_s']!r} s (launch wall {wall:.1f} s), Krylov per solve {ranks[0]['krylov']}, gaps {json.dumps(gaps)}, round trip bit for bit; rank 0's collectives {json.dumps(ranks[0]['collectives'])}; launches per rank {[{k: c['launches'] for k, c in r['counts'].items()} for r in ranks]}")
         out["counts"].append(counts)
     for r, rec in enumerate(sweep):
@@ -3289,34 +3544,42 @@ def phase_dd_check(device):
                 and np.abs(h["drag"] - ref_hist["drag"]).max() <= 1e-8
                 and max(np.abs(rec["u"] - ref_fields[0]).max(), np.abs(rec["p"] - ref_fields[1]).max()) <= 1e-7):
             raise RuntimeError(f"dd-check: run_sweep(mesh=...) rank {r} does not match the unsharded sweep: {h} vs {ref_hist}")
-        for name, c in rec["counts"].items():
-            if c["launches"] <= 0:
-                raise RuntimeError(f"dd-check: sweep rank {r} never launched {name}")
+        check_path_launches(rec["counts"], f"dd-check: sweep rank {r}")
     print(f"[dd-check] run_sweep(mesh=...) B {len(DD_CHECK_NUS)} over 2 'ens' ranks: Newton {sweep[0]['hist']['newton_iters'].tolist()}, Krylov {sweep[0]['hist']['krylov_iters'].tolist()} (unsharded {ref_hist['krylov_iters'].tolist()}), drag gap {float(np.abs(sweep[0]['hist']['drag'] - ref_hist['drag']).max())!r}")
     out["counts"].append(summed_counts(r["counts"] for r in sweep))
     out["counts"] = summed_counts(out["counts"])
     return out
 
 
-def phase_dd_north(device, unsteady):
+def dd_north_run(device):
+    """dd-north's ranks: phase 9's configuration under ``DD_NORTH_TILES``
+    (``dd_step_rank`` on each tile), as plain data: the ranks' records and
+    the launch wall.  It needs nothing of phase 9, so ``main`` starts it
+    in a thread before phase 9 runs."""
+    from navier_stokes_solver_tpu_torch.dist import launch
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    n = DD_NORTH_TILES[0] * DD_NORTH_TILES[1]
+    cfg = PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1)
+    t0 = time.perf_counter()
+    ranks = launch(dd_step_rank, n, [str(device)] * n, UNSTEADY_MESH, (3, 2), 100.0, cfg, 1e-9, DD_NORTH_TILES)
+    return ranks, time.perf_counter() - t0
+
+
+def phase_dd_north(device, unsteady, run=None):
     """This slice's full-width path: phase 9's configuration (BASELINE's
     north star, 300x100 Q3/Q2, 657,740 DoFs, Re 100, dt 0.01, one host
     step, f32 Cahouet-Chabard with one Lp V-cycle, consistent sign) under
     ``DD_NORTH_TILES`` -- four 150x50 tiles, four ranks sharing the card
-    under gloo -- held against phase 9's step (``unsteady``): Krylov total
+    under gloo (``run``: the future of ``dd_north_run``, by default run
+    here) -- held against phase 9's step (``unsteady``): Krylov total
     within 1.1x + 5, drag within 1e-7, Newton residual <= 1e-9; its wall
     (not a speedup: the ranks share one card and its host), the launches
     per rank, the collectives per outer iteration and the seam bytes."""
-    from navier_stokes_solver_tpu_torch.dist import launch
-    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
-
     card = nvidia_smi()
     dd = DD_NORTH_TILES
     n = dd[0] * dd[1]
-    cfg = PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1)
-    t0 = time.perf_counter()
-    ranks = launch(dd_step_rank, n, [str(device)] * n, UNSTEADY_MESH, (3, 2), 100.0, cfg, 1e-9, dd)
-    wall = time.perf_counter() - t0
+    ranks, wall = dd_north_run(device) if run is None else run.result()
     r0 = ranks[0]
     if r0["n_dofs"] != UNSTEADY_DOFS:
         raise RuntimeError(f"dd-north: DoF count {r0['n_dofs']} != {UNSTEADY_DOFS}")
@@ -3346,21 +3609,22 @@ def summed_counts(runs):
 
 
 def kernel_line(errs, times, counts, counts_by_path):
-    """The kernels of the slices' main paths: launches from this slice's
-    (dd-north, the four ranks' summed) and times at its finest level (a
-    150x50 Q3/Q2 tile, f32: ``cell_apply_F`` in the Stokes regime, the one
-    with a library yardstick; ``scatter_v_bc`` without its boundary rows,
-    as a tile launches it); launches on every main path (0 on the simplex
-    ones, the ensemble's and the decomposed ones included), and times at
-    every shape, beside them."""
+    """The kernels of the slices' main paths: launches from dd-north's
+    (the four ranks' summed) and times at its finest level (a 150x50 Q3/Q2
+    tile, f32, in the Stokes regime, the one with a library yardstick:
+    ``apply_F_fused`` and ``scatter_v_bc`` without their boundary rows, as
+    a tile launches them); launches on every main path (0 on the simplex
+    ones; ``cell_apply_F`` and ``scatter_v_bc``, which only the checks
+    launch now, 0 on every path), and times at every shape, beside them."""
     mesh = f"{DD_NORTH_TILE[0]}x{DD_NORTH_TILE[1]} Q3/Q2 float32"
-    main_tag = {"cell_apply_F": f"{mesh} stokes", "scatter_v_bc": f"{mesh} raw"}
+    main_tag = {"apply_F_fused": f"{mesh} stokes raw", "cell_apply_F": f"{mesh} stokes", "scatter_v_bc": f"{mesh} raw"}
     rows = []
-    for name in ("cell_apply_F", "scatter_v_bc"):
+    for name in KERNELS:
         rec = times[name][main_tag[name]]
         rows.append({
             "name": name,
             "route": "cuda",
+            "role": "solve paths" if name in PATH_KERNELS else "checks only (the card-side oracle)",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": counts[name]["launches"],
@@ -3398,15 +3662,17 @@ def main():
         f"[budget] depth cuts taken: stationary bench solves {SOLVES} of 2; unsteady 300x100 steps {UNSTEADY_STEPS} of 2 "
         f"(of the 800 of T = 8); config3-lu and config3-lu-fused {CONFIG3_LU_STEPS} of 20 steps (of the record's 800); "
         f"phase 12's unsteady card-only entry dropped; fused-main {FUSED_MAIN_STEPS} of 2 steps; ensemble-matrix's "
-        f"combinations in {ENSEMBLE_MATRIX_WORKERS} worker processes beside the card-vs-CPU phases; ensemble-matrix (a) "
-        f"{ENSEMBLE_MATRIX_A_STEPS} of {ENSEMBLE_MATRIX_STEPS} steps; ensemble-simplex-lu B {ENSEMBLE_SIMPLEX_B} of 64 "
+        f"combinations and the card-vs-CPU phases' card sides in {CARD_WORKERS} worker processes on the card beside "
+        f"the -M phases; ensemble-matrix {ENSEMBLE_MATRIX_STEPS} of 2 steps each, (a) dropped at width (its "
+        f"16x8 check kept); simplex-check's unsteady run "
+        f"{SIMPLEX_CHECK_STEPS} of 2 steps; ensemble-simplex-lu B {ENSEMBLE_SIMPLEX_B} of 64 "
         f"(its factors' memory); config3 {CONFIG3_STEPS} of its 3 steps; ensemble-simplex-lu {ENSEMBLE_SIMPLEX_STEPS} "
         f"of 3 steps. Not cut: "
         f"unsteady-check steps {CHECK_STEPS}, config 1, matrix at {MATRIX_MESH[0]}x{MATRIX_MESH[1]}, simplex check at "
         f"-M {SIMPLEX_CHECK_MESH[0]}x{SIMPLEX_CHECK_MESH[1]}, fused check (3 and 2 steps), "
         f"simplex-file one step, ensemble-main B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps, cavity-ghia at "
-        f"{CAVITY_MESH[0]}x{CAVITY_MESH[1]}, ensemble-matrix B {ENSEMBLE_B}, {len(ENSEMBLE_MATRIX)} combinations, "
-        f"{ENSEMBLE_MATRIX_STEPS} steps each but (a), ensemble-ir B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps, "
+        f"{CAVITY_MESH[0]}x{CAVITY_MESH[1]}, ensemble-matrix B {ENSEMBLE_B}, "
+        f"ensemble-ir B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps, "
         f"ensemble-rest-check's four cases, dd-check at {DD_CHECK_MESH[0]}x{DD_CHECK_MESH[1]} under "
         f"{len(DD_CHECK_TILES)} tile grids, dd-north at {UNSTEADY_MESH[0]}x{UNSTEADY_MESH[1]} on "
         f"{DD_NORTH_TILES[0]} x {DD_NORTH_TILES[1]} tiles"
@@ -3421,28 +3687,42 @@ def main():
     phase_launches(device)
     lap("kernel build, checks, timings, launches")
     # the CPU sides of the card-vs-CPU phases start now, in three worker
-    # processes (six of the host's eight cores): they run beside the timed
-    # single-process paths below, each of which keeps one core and the card
+    # processes (six of the host's eight cores, niced): they run beside the
+    # timed single-process paths below, each of which keeps one core and
+    # the card
     pool = cpu_pool(3)
     # the fourth to eighth CPU sides start when a worker is free
     cpu = {name: pool.submit(cpu_job, name)
            for name in ("unsteady-check", "matrix", "simplex-check", "fused-check", "ensemble-check",
                         "ensemble-matrix-check", "cavity-check", "ensemble-rest-check")}
-    s1, config1 = phase_config1(device)
-    c1outer = phase_outer(s1, regimes=(True,), tag="config1-outer")
-    print(f"[config1] setup {config1['setup_s']:.3f} s, solve wall {config1['wall_s']!r} s, {config1['outer']} outers; Stokes regime per outer iteration: {c1outer['stokes']['kernels']!r} device kernels, {c1outer['stokes']['device_ms']!r} device ms, {c1outer['stokes']['readbacks']!r} readbacks, busy {c1outer['stokes']['busy']:.4f}")
-    del s1
-    lap("config1")
     with open(os.path.join(ROOT, "BENCH_r05.json")) as f:
         ref = json.load(f)["parsed"]["extra"]
     runs = []
     for _ in range(SOLVES):
         s, run = run_solve(device, ref)
         runs.append(run)
-    outer = phase_outer(s)
-    print(f"[main] solve_newton walls {[r['wall_s'] for r in runs]} s; outer iterations {[r['outer'] for r in runs]}; kernels per outer iteration newton {outer['newton']['kernels']!r}, stokes {outer['stokes']['kernels']!r}")
+    outer = phase_outer(s, regimes=(False,))
+    print(f"[main] solve_newton walls {[r['wall_s'] for r in runs]} s; outer iterations {[r['outer'] for r in runs]}; kernels per outer iteration newton {outer['newton']['kernels']!r}")
     del s
     lap("stationary bench solve")
+    # the decomposed phases, each a chain of device synchronizations and
+    # host round trips of ranks that wait for the card asleep, run in
+    # threads: dd-north's ranks from here on, beside the timed paths after
+    # the headline (its comparison with phase 9 comes at the end; beside
+    # the headline they made it take 2.3 times as long), and dd-check's
+    # from dd-north's end or the timed paths' end, whichever comes first
+    dd_pool = concurrent.futures.ThreadPoolExecutor(2)
+    north_run = dd_pool.submit(dd_north_run, device)
+    timed_done = threading.Event()
+
+    def dd_check_when_free():
+        while not (timed_done.is_set() or north_run.done()):
+            if not threading.main_thread().is_alive():  # a phase failed
+                return None
+            timed_done.wait(1.0)
+        return phase_dd_check(device)
+
+    check_future = dd_pool.submit(dd_check_when_free)
     su, unsteady = phase_unsteady_main(device)
     # dd-north's reference: phase 9's step, before fused-main moves the state
     north_ref = {"wall_s": unsteady["wall_s"], "krylov": [h["krylov_iters"] for h in solves_of(su)],
@@ -3463,49 +3743,18 @@ def main():
     print(f"[cavity-ghia] per outer iteration at the converged state, Newton regime (the Stokes rhs of a converged cavity is zero): {couter['newton']['kernels']!r} device kernels, {couter['newton']['device_ms']!r} device ms, {couter['newton']['wall_ms']!r} ms wall, {couter['newton']['readbacks']!r} readbacks, busy {couter['newton']['busy']:.4f}")
     del sc
     _, cavity_cli = phase_cavity_cli(device)
-    lap("cavity-ghia and cavity-cli")
-    # the card-vs-CPU phases, after the timed paths before them and before
-    # those after them: their CPU sides run meanwhile in worker processes,
-    # and so do ensemble-matrix's combinations, on the card (a host-bound
-    # path: the card idles most of the time under each of them)
-    t_checks = time.perf_counter()
-    # the decomposed phases, each a chain of device synchronizations and
-    # host round trips that leaves the host and the card mostly idle, run
-    # in threads beside other phases: dd-north beside the card-vs-CPU
-    # phases (and the -M phases, when it outlasts them), dd-check from
-    # their end beside the -M phases
-    dd_pool = concurrent.futures.ThreadPoolExecutor(2)
-    north_future = dd_pool.submit(phase_dd_north, device, north_ref)
-    with pool, cpu_pool(ENSEMBLE_MATRIX_WORKERS) as card_pool:
-        matrix_runs = start_ensemble_matrix(card_pool)
-        # four card sides, after the combinations, in the same two workers
-        card = {name: card_pool.submit(card_job, name) for name in CARD_SIDES}
-        phase_unsteady_check(device, cpu["unsteady-check"])
-        lap("unsteady-check (the card side, and the wait for its CPU side)")
-        phase_matrix(device, cpu["matrix"])
-        lap("matrix (the card side, and the wait for its CPU side)")
-        phase_profile(device)
-        lap("profile (the card side, and the wait for its CPU side)")
-        phase_simplex_check(device, cpu["simplex-check"])
-        lap("simplex-check (the card side, and the wait for its CPU side)")
-        phase_cavity_check(device, cpu["cavity-check"])
-        lap("cavity-check (the card side, and the wait for its CPU side)")
-        phase_fused_check(device, cpu["fused-check"], card["fused-check"])
-        lap("fused-check (the wait for its card side in a card worker, and for its CPU side)")
-        phase_ensemble_check(device, cpu["ensemble-check"], card["ensemble-check"])
-        lap("ensemble-check (the wait for both sides)")
-        phase_ensemble_matrix_check(device, cpu["ensemble-matrix-check"], card["ensemble-matrix-check"])
-        lap("ensemble-matrix-check (the wait for both sides)")
-        phase_ensemble_rest_check(device, cpu["ensemble-rest-check"], card["ensemble-rest-check"])
-        lap("ensemble-rest-check (the wait for both sides)")
-        matrix = phase_ensemble_matrix(device, matrix_runs)
-        lap("ensemble-matrix (the wait for its workers after the card-vs-CPU phases)")
-    print(f"[budget] ensemble-matrix and the card-vs-CPU phases (8, 12-14, 18, 22, 27, 29-31) {time.perf_counter() - t_checks:.1f} s")
-    # dd-check starts now, beside dd-north's last stretch and the -M phases
-    check_future = dd_pool.submit(phase_dd_check, device)
+    phase_profile(device)
+    lap("cavity-ghia, cavity-cli and profile")
+    timed_done.set()
+    # from here on, beside the -M phases and config 1 in this process:
+    # ensemble-matrix's combinations and then the card sides of the
+    # card-vs-CPU phases in CARD_WORKERS worker processes on the card (a
+    # host-bound path: the card idles most of the time under each of them)
+    card_pool = cpu_pool(CARD_WORKERS, initializer=wait_asleep)
+    matrix_runs = start_ensemble_matrix(card_pool)
+    card = {name: card_pool.submit(card_job, name) for name in CARD_SIDES}
     s3, config3 = phase_config3(device)
-    c3outer = phase_outer(s3, regimes=(False,), tag="config3-outer")
-    print(f"[config3] setup {config3['setup_s']:.3f} s, per-step walls {[r['wall_s'] for r in config3['steps']]} s, Newton iterations per step {[r['newton_iterations'] for r in config3['steps']]}, outers per step {[r['outer'] for r in config3['steps']]}; Newton regime per outer iteration: {c3outer['newton']['kernels']!r} device kernels, {c3outer['newton']['device_ms']!r} device ms, {c3outer['newton']['wall_ms']!r} ms wall, {c3outer['newton']['readbacks']!r} readbacks, busy {c3outer['newton']['busy']:.4f}")
+    print(f"[config3] setup {config3['setup_s']:.3f} s, per-step walls {[r['wall_s'] for r in config3['steps']]} s, Newton iterations per step {[r['newton_iterations'] for r in config3['steps']]}, outers per step {[r['outer'] for r in config3['steps']]}")
     simplex3 = (s3.disc, *s3.fields())
     del s3
     lap("config3")
@@ -3520,11 +3769,36 @@ def main():
         _, simplex_file = phase_simplex_file(device, tmp)
         phase_native_io(state300, simplex3, os.path.join(tmp, "curved.msh"))
     lap("simplex-file and native-io")
-    dd_north = north_future.result()
-    lap("dd-north (the wait for it after the card-vs-CPU and -M phases it ran beside)")
+    s1, config1 = phase_config1(device)
+    c1outer = phase_outer(s1, regimes=(True,), tag="config1-outer")
+    print(f"[config1] setup {config1['setup_s']:.3f} s, solve wall {config1['wall_s']!r} s, {config1['outer']} outers; Stokes regime per outer iteration: {c1outer['stokes']['kernels']!r} device kernels, {c1outer['stokes']['device_ms']!r} device ms, {c1outer['stokes']['readbacks']!r} readbacks, busy {c1outer['stokes']['busy']:.4f}")
+    del s1
+    lap("config1")
+    # the card-vs-CPU phases: both sides ran in the worker processes
+    with pool, card_pool:
+        phase_unsteady_check(device, cpu["unsteady-check"], card["unsteady-check"])
+        lap("unsteady-check (the wait for both sides)")
+        phase_matrix(device, cpu["matrix"], card["matrix"])
+        lap("matrix (the wait for both sides)")
+        phase_simplex_check(device, cpu["simplex-check"], card["simplex-check"])
+        lap("simplex-check (the wait for both sides)")
+        phase_cavity_check(device, cpu["cavity-check"], card["cavity-check"])
+        lap("cavity-check (the wait for both sides)")
+        phase_fused_check(device, cpu["fused-check"], card["fused-check"])
+        lap("fused-check (the wait for both sides)")
+        phase_ensemble_check(device, cpu["ensemble-check"], card["ensemble-check"])
+        lap("ensemble-check (the wait for both sides)")
+        phase_ensemble_matrix_check(device, cpu["ensemble-matrix-check"], card["ensemble-matrix-check"])
+        lap("ensemble-matrix-check (the wait for both sides)")
+        phase_ensemble_rest_check(device, cpu["ensemble-rest-check"], card["ensemble-rest-check"])
+        lap("ensemble-rest-check (the wait for both sides)")
+        matrix = phase_ensemble_matrix(device, matrix_runs)
+        lap("ensemble-matrix (the wait for its workers)")
+    dd_north = phase_dd_north(device, north_ref, north_run)
+    lap("dd-north (the wait for its ranks, started after the headline)")
     dd_check = check_future.result()
     dd_pool.shutdown()
-    lap("dd-check (the wait for it after the -M phases it ran beside)")
+    lap("dd-check (the wait for it after the phases it ran beside)")
     for name in errs:
         errs[name] = max(errs[name], dd_north["errs"][name], dd_check["errs"][name])
     counts_by_path = {

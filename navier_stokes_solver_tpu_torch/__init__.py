@@ -7,9 +7,9 @@ force), stationary Newton continuation and the unsteady
 implicit-Euler loop, GMRES / FGMRES (with GMRES-IR restart cycles) /
 BiCGStab and the blockDiagonal, blockTriangular and aSIMPLE preconditioners
 with a geometric-multigrid velocity leg, and the reference's two command-line
-programs (``cli/``) -- written as plain functions on torch tensors.  The fused
-per-cell velocity-block apply is a hand-written CUDA kernel
-(``csrc/cell_apply_f.cu``, bound in ``ops/cell_kernel.py``); VTU output and
+programs (``cli/``) -- written as plain functions on torch tensors.  The
+velocity-block apply is one hand-written CUDA kernel per call
+(``csrc/apply_f_fused.cu``, bound in ``ops/apply_f_kernel.py``); VTU output and
 the gmsh reader have a native C++ path (``native/``, built with ``g++``).
 
 Numeric settings, fixed at import (no device is chosen here: every object

@@ -5,8 +5,8 @@ seconds with ``nvcc`` alone (no PyTorch headers).  The build runs at first
 use, from the sources in the checkout, into ``build/`` next to this file
 (listed in ``.gitignore``): one ``nvcc -c`` per source, all started
 together, then one link into a shared library, loaded with ctypes.  The
-library's name carries a hash of the sources and flags, so an edited
-source is never served by a stale build.  A failed build raises.
+library's name carries a hash of the sources, the header they share
+and the flags, so an edited source is never served by a stale build.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -18,12 +18,14 @@ import os
 import shutil
 import subprocess
 
-__all__ = ["BUILD_DIR", "SOURCES", "build", "load", "error_string"]
+__all__ = ["BUILD_DIR", "SOURCES", "HEADERS", "build", "load", "error_string"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(
-    os.path.join(_PKG, "csrc", name) for name in ("cell_apply_f.cu", "scatter_v.cu")
+    os.path.join(_PKG, "csrc", name) for name in ("cell_apply_f.cu", "scatter_v.cu", "apply_f_fused.cu")
 )
+# included by the sources: part of the build's hash
+HEADERS = (os.path.join(_PKG, "csrc", "cell_apply_f.cuh"),)
 BUILD_DIR = os.path.join(_PKG, "build")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + (
@@ -69,7 +71,7 @@ def build() -> tuple[str, str]:
     register and shared-memory report when this call compiled, else "".
     """
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     path = os.path.join(BUILD_DIR, f"libnstt_kernels-{h.hexdigest()[:16]}.so")
@@ -108,6 +110,16 @@ def load() -> ctypes.CDLL:
         _c_ptr, _c_int, _c_ptr,  # out, members, stream
     ]
     lib.nstt_scatter_v.restype = _c_int
+    lib.nstt_apply_f_fused.argtypes = [
+        _c_int, _c_int, _c_int,  # is_f64, k, stokes
+        _c_ptr, _c_int, _c_int, _c_int, _c_int,  # x, its 4 strides
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # uq, guq, w, tabs
+        _c_double, _c_ptr, _c_double,  # nu, per-member nu (or null), inv_dt
+        _c_ptr, _c_ptr, _c_ptr,  # diag (or null), dirichlet, active
+        _c_ptr, _c_int, _c_int, _c_int,  # out, nx, ny, members
+        _c_int, _c_ptr,  # block shape, stream
+    ]
+    lib.nstt_apply_f_fused.restype = _c_int
     lib.nstt_error_string.argtypes = [_c_int]
     lib.nstt_error_string.restype = ctypes.c_char_p
     return lib

@@ -64,7 +64,11 @@
 // The arithmetic is the first version's, rounding step for rounding step
 // (g over m ascending; y over q ascending as a = dx fgx + dy fgy;
 // a += p fv; y += a, with the fused multiply-adds it compiled to written
-// out), so its f32 results are the same bit for bit.
+// out), so its f32 results are the same bit for bit.  Steps 2 and 3 live
+// in cell_apply_f.cuh, which the one-launch apply_F (apply_f_fused.cu)
+// calls too: the solver's apply_F runs that kernel, and this one stays as
+// the card-side oracle it is held against bit for bit (with scatter_v.cu)
+// and as the counterpart of the JAX cell_apply_F_pallas on gathered DoFs.
 //
 // Tensor cores are not used: their only f32 path is TF32, about three
 // decimal digits, which the port turns off; f64 could use DMMA, but f64 is
@@ -78,7 +82,12 @@
 
 #include <cuda_runtime.h>
 
+#include "cell_apply_f.cuh"
+
 namespace {
+
+using nstt::Cell;
+using nstt::Flux;
 
 constexpr int kMaxTile = 20;  // cells per block, at most
 
@@ -86,34 +95,22 @@ struct View {  // element strides of the [k+1, k+1, B, 2, ny, nx] input view
   int a, b, m, comp, iy, ix;
 };
 
-// Arithmetic rounded exactly as written: nvcc's default contraction
-// (-fmad=true) may fuse a product into a neighbouring sum in either order,
-// and chose differently for the two components in the first version.
-// These keep its results while leaving the compiler no choice.
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float fmadd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fmadd(double a, double b, double c) { return __fma_rn(a, b, c); }
-
 template <int K>
-struct Cell {
-  static constexpr int N = (K + 1) * (K + 1);        // n_v = n_q
-  static constexpr int kThreads = N * kMaxTile;      // per block, at most
-  static constexpr int kRow = (K + 1) * kMaxTile;    // strip row in shared memory
+struct Tile {
+  static constexpr int kThreads = Cell<K>::N * kMaxTile;  // per block, at most
+  static constexpr int kRow = (K + 1) * kMaxTile;         // strip row in shared memory
 };
 
 template <typename T, int K, bool STOKES, bool BATCHED>
-__global__ void __launch_bounds__(Cell<K>::kThreads)
+__global__ void __launch_bounds__(Tile<K>::kThreads)
 cell_apply_f_kernel(const T* __restrict__ x, View s, int lattice,
                     const T* __restrict__ uq, const T* __restrict__ guq,
                     const T* __restrict__ w, const T* __restrict__ tabs,
                     T nu_scalar, const T* __restrict__ nu_b, T inv_dt,
                     T* __restrict__ y, int nx, int ny, int tile) {
   constexpr int N = Cell<K>::N;
-  constexpr int R = Cell<K>::kRow;
-  constexpr int NF = STOKES ? 4 : 6;  // fluxes per (q, cell)
+  constexpr int R = Tile<K>::kRow;
+  constexpr int NF = Flux<STOKES>::NF;
   __shared__ T s_tab[3 * N * N];
   __shared__ T s_x[2 * (K + 1) * R];
   __shared__ T s_f[NF * N * kMaxTile];
@@ -158,73 +155,20 @@ cell_apply_f_kernel(const T* __restrict__ x, View s, int lattice,
   }
   __syncthreads();
 
-  const T* sP = s_tab;
-  const T* sDx = s_tab + N * N;
-  const T* sDy = s_tab + 2 * N * N;
   const int fs = N * tile;  // s_f[f][q][t] at f * fs + q * tile + t
   const int jm = j * B + mb;  // (quadrature point or local DoF j, member)
 
   // 2. evaluate at quadrature point q = j
   if (live) {
-    const T* dxq = sDx + j * N;
-    const T* dyq = sDy + j * N;
-    const T* pq = sP + j * N;
-    const T* x0 = s_x + t * W;
-    const T* x1 = s_x + (K + 1) * R + t * W;
-    T gx0 = T(0), gy0 = T(0), gx1 = T(0), gy1 = T(0), v0 = T(0), v1 = T(0);
-#pragma unroll
-    for (int m = 0; m < N; ++m) {
-      const int off = (m / (K + 1)) * R + m % (K + 1);
-      const T xm0 = x0[off], xm1 = x1[off];
-      gx0 = fmadd(dxq[m], xm0, gx0);
-      gy0 = fmadd(dyq[m], xm0, gy0);
-      gx1 = fmadd(dxq[m], xm1, gx1);
-      gy1 = fmadd(dyq[m], xm1, gy1);
-      if (!STOKES) {
-        v0 = fmadd(pq[m], xm0, v0);
-        v1 = fmadd(pq[m], xm1, v1);
-      }
-    }
-    const T wq = w[j * C + c];
-    T* f = s_f + threadIdx.x;
-    f[0] = mul(mul(nu, gx0), wq);
-    f[fs] = mul(mul(nu, gy0), wq);
-    f[2 * fs] = mul(mul(nu, gx1), wq);
-    f[3 * fs] = mul(mul(nu, gy1), wq);
-    if (!STOKES) {
-      const T u0 = uq[(2 * jm) * C + c], u1 = uq[(2 * jm + 1) * C + c];
-      const T g00 = guq[(4 * jm + 0) * C + c], g01 = guq[(4 * jm + 1) * C + c];
-      const T g10 = guq[(4 * jm + 2) * C + c], g11 = guq[(4 * jm + 3) * C + c];
-      // (u_k . grad) x + (x . grad) u_k + x / dt, summed left to right
-      T a0 = fmadd(u0, gx0, mul(u1, gy0));
-      T a1 = fmadd(u0, gx1, mul(u1, gy1));
-      a0 = fmadd(inv_dt, v0, fmadd(v1, g01, fmadd(v0, g00, a0)));
-      a1 = fmadd(inv_dt, v1, fmadd(v1, g11, fmadd(v0, g10, a1)));
-      f[4 * fs] = mul(a0, wq);
-      f[5 * fs] = mul(a1, wq);
-    }
+    nstt::cell_flux<T, K, STOKES>(s_tab, j, s_x + t * W, s_x + (K + 1) * R + t * W, R, nu, inv_dt,
+                                  w, uq, guq, jm, C, c, s_f + threadIdx.x, fs);
   }
   __syncthreads();
 
   // 3. project onto local DoF m = j
   if (live) {
-    T y0 = T(0), y1 = T(0);
-#pragma unroll 4
-    for (int q = 0; q < N; ++q) {
-      const T* f = s_f + q * tile + t;
-      const T dx = sDx[q * N + j], dy = sDy[q * N + j];
-      // the first version's contractions: dx first for component 0, dy
-      // first for component 1
-      T a0 = fmadd(dx, f[0], mul(dy, f[fs]));
-      T a1 = fmadd(dy, f[3 * fs], mul(dx, f[2 * fs]));
-      if (!STOKES) {
-        const T p = sP[q * N + j];
-        a0 = fmadd(p, f[4 * fs], a0);
-        a1 = fmadd(p, f[5 * fs], a1);
-      }
-      y0 = add(y0, a0);
-      y1 = add(y1, a1);
-    }
+    T y0, y1;
+    nstt::cell_project<T, K, STOKES>(s_tab, j, s_f + t, tile, fs, y0, y1);
     y[(2 * jm) * C + c] = y0;
     y[(2 * jm + 1) * C + c] = y1;
   }

@@ -4,7 +4,7 @@ The reference runs parameter sweeps as separate jobs (run_sim_steady.sh);
 the JAX package batches B simulations with ``vmap`` over its fused time step
 (BASELINE.json config 5).  The port advances B members, one viscosity each,
 through one batched step (``timeloop.make_batched_time_step``): every
-launch serves all members, both CUDA kernels included.
+launch serves all members, the one-launch ``apply_F`` included.
 """
 
 from navier_stokes_solver_tpu_torch.ensemble.sweep import (

@@ -9,12 +9,15 @@ the Newton regime, ``(u_k . grad) x + (x . grad) u_k + x / dt`` -- and
 projects back onto the test functions weighted by JxW and the active-cell
 mask.
 
-Two entry points launch the same kernel (``csrc/cell_apply_f.cu``):
+Two entry points launch the same kernel (``csrc/cell_apply_f.cu``); the
+solver's ``apply_F`` no longer does (``ops/apply_f_kernel.py`` runs the
+same per-cell code, ``csrc/cell_apply_f.cuh``, with the scatter in one
+launch), so only the card-side checks launch it, as the oracle that
+kernel is held against:
 
-* ``cell_apply_F_lattice`` (the main path, ``ops/matfree.py::apply_F``)
-  takes the velocity lattice [2, NY, NX] and reads it in place through
-  the strides of its cell-local view (``ops/lattice.py::lattice_view``):
-  no gather copy;
+* ``cell_apply_F_lattice`` takes the velocity lattice [2, NY, NX] and
+  reads it in place through the strides of its cell-local view
+  (``ops/lattice.py::lattice_view``): no gather copy;
 * ``cell_apply_F`` takes gathered DoFs [n_v, 2, ny, nx], the layout of
   the JAX ``cell_apply_F_pallas``.
 

@@ -11,10 +11,9 @@ Each operator application is:
       -> einsum with test functions
       -> ordered strided scatter-add back to the node lattice
 
-The velocity block ``apply_F`` runs the first four steps as one fused
-per-cell kernel that reads the lattice in place (``ops/cell_kernel.py``)
-and the scatter, with the boundary rows, as a second
-(``ops/scatter_kernel.py``); the plain gather and scatter live in
+The velocity block ``apply_F`` runs all five steps, with the boundary
+rows, as one kernel launch that reads the lattice in place
+(``ops/apply_f_kernel.py``); the plain gather and scatter live in
 ``ops/lattice.py``.  The voxelized cylinder is
 handled by masking inactive cells (``disc.cell_mask``); lattice nodes that
 do not exist in the reference triangulation behave as identity rows.
@@ -47,8 +46,8 @@ from typing import NamedTuple
 import torch
 
 from navier_stokes_solver_tpu_torch.krylov.solvers import WeightedDot
+from navier_stokes_solver_tpu_torch.ops.apply_f_kernel import apply_F_fused
 from navier_stokes_solver_tpu_torch.ops.blocks import Blocks, is_batched, per_member
-from navier_stokes_solver_tpu_torch.ops.cell_kernel import cell_apply_F_lattice
 from navier_stokes_solver_tpu_torch.ops.disc import Disc
 from navier_stokes_solver_tpu_torch.ops.lattice import (  # noqa: F401 (_gather, _scatter: tests)
     _gather,
@@ -58,7 +57,6 @@ from navier_stokes_solver_tpu_torch.ops.lattice import (  # noqa: F401 (_gather,
     _scatter_p,
     _scatter_v,
 )
-from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc
 
 __all__ = [
     "LinearizationQ",
@@ -195,17 +193,16 @@ def apply_F(
     Newton regime: adds linearized convection + du . v / dt
     (NSSolver.cpp:424-453).  ``inv_dt = 0`` gives the stationary variant.
 
-    On CUDA tensors, two kernel launches in both dtypes: the cell kernel
-    reads ``x_u``'s lattice in place (``cell_apply_F_lattice``), and the
-    ordered scatter applies the boundary rows as it writes
-    (``scatter_v_bc``).  CPU tensors take their plain versions.
+    On CUDA tensors, one kernel launch in both dtypes
+    (``apply_F_fused``): it reads ``x_u``'s lattice in place, keeps the
+    cell-local results on chip and applies the boundary rows as it writes.
+    CPU tensors take its plain version.
 
     ``bc_diag``: if given, constrained rows are replaced by ``diag * x``
     (the post-``apply_boundary_values`` matrix, as used for preconditioner
     inner solves on the velocity block, NSSolver.cpp:609).
     """
-    loc = cell_apply_F_lattice(disc, nu, inv_dt, linq, x_u, stokes=stokes)
-    return scatter_v_bc(disc, loc, bc_diag=bc_diag, x_u=x_u)
+    return apply_F_fused(disc, nu, inv_dt, linq, x_u, stokes=stokes, bc_diag=bc_diag)
 
 
 def make_apply_F(disc: Disc, nu, inv_dt, linq, *, stokes: bool, bc_diag=None):

@@ -1,7 +1,10 @@
 """Ordered velocity scatter with apply_F's boundary rows: CUDA kernel wrapper
 and plain version.
 
-The second of ``apply_F``'s two launches (``csrc/scatter_v.cu``).  It
+Kernel B (``csrc/scatter_v.cu``): the second of the two launches that
+``apply_F`` made before it became one (``ops/apply_f_kernel.py``, whose
+epilogue is this kernel's pull); only the card-side checks launch it now,
+as the oracle the one-launch kernel is held against bit for bit.  It
 sums the cell kernel's local results onto the velocity lattice -- at every
 node its up-to-four contributions in ascending local index, from +0.0, the
 JAX package's order -- and, given ``bc_diag``, applies the boundary rows

@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 scripts/torch_apply_f_ab.py --root DIR --tag NAME [--save FILE.npz]
-    python3 scripts/torch_apply_f_ab.py --root DIR --tag NAME --kernel-only [--mesh NX,NY ...]
+    python3 scripts/torch_apply_f_ab.py --root DIR --tag NAME --kernel-only [--mesh NX,NY ...] [--degree 2] [--batch] [--shapes]
     python3 scripts/torch_apply_f_ab.py --compare A.npz B.npz
 
 Imports ``navier_stokes_solver_tpu_torch`` from the checkout ``DIR`` (and
@@ -20,10 +20,18 @@ at 100x70 Q3/Q2 float32 in both regimes, on inputs made from a numpy seed:
     configuration (state zero, nu = 1/90): device kernels, device ms and
     wall ms, from profiler windows of 1 and 5 outer iterations.
 
-``--kernel-only`` times the two kernels alone (device ms per call, 200
+``--kernel-only`` times the kernels alone (device ms per call, 200
 back-to-back launches): ``cell_apply_F`` in both regimes and
-``scatter_v_bc`` with its boundary rows, at every multigrid level of
-100x70 Q3/Q2, or at the ``--mesh`` shapes given (Q3/Q2, f32).
+``scatter_v_bc`` with its boundary rows, and ``apply_F_fused`` with its
+rows in both regimes where the checkout has it, at every multigrid level
+of 100x70 Q3/Q2, or at the ``--mesh`` shapes given (f32; Q3/Q2, or
+Q2/Q1 with ``--degree 2``; ``--batch``: config 5's B = 64 members with
+their viscosities, Q2/Q1).
+``apply_F_fused`` is timed at the block shape a launch picks
+(``apply_f_kernel.block_shape``); ``--shapes`` times it at every block
+shape it is built with (``apply_f_kernel.BLOCK_SHAPES``), each output
+checked bit for bit against the picked shape's, with each shape's tile and
+recompute ratio (cells computed over cells owned, the halo included).
 
 It prints one JSON line.  ``--save`` writes the f32 outputs of
 ``cell_apply_F`` and ``apply_F``; ``--compare`` prints, per output, the
@@ -92,7 +100,17 @@ def measure(root: str, tag: str, save: str | None):
         np.savez(save, **arrays)
 
 
-def kernel_only(root: str, tag: str, meshes=None):
+def recompute_ratio(nx: int, ny: int, tile) -> float:
+    """Cells the fused kernel computes over the cells of the mesh, at a
+    ``(rows, columns)`` tile: each tile with its halo row and column
+    (none before the first row or column)."""
+    ty, tx = tile
+    rows = sum(min(y + ty, ny) - max(y - 1, 0) for y in range(0, ny, ty))
+    cols = sum(min(x + tx, nx) - max(x - 1, 0) for x in range(0, nx, tx))
+    return rows * cols / (nx * ny)
+
+
+def kernel_only(root: str, tag: str, meshes=None, shapes=False, degree=3, batch=False):
     """Device ms of one cell-kernel call at 100x70 and every multigrid
     level (or at ``meshes``), f32, both regimes: ``cell_apply_F_lattice``
     where the checkout has it, else ``cell_apply_F`` on gathered DoFs; and
@@ -110,22 +128,47 @@ def kernel_only(root: str, tag: str, meshes=None):
         from navier_stokes_solver_tpu_torch.ops.scatter_kernel import scatter_v_bc
     except ImportError:  # the first version: no scatter kernel
         scatter_v_bc = None
+    try:
+        from navier_stokes_solver_tpu_torch.ops import apply_f_kernel
+    except ImportError:  # before the one-launch apply_F
+        apply_f_kernel = None
     lattice = hasattr(cell_kernel, "cell_apply_F_lattice")
     out = {"tag": tag, "card": cs.nvidia_smi(), "entry": "lattice" if lattice else "gathered"}
     for mesh in meshes or cs.mg_shapes(device, cs.BENCH_MESH):
-        disc, linq, x, bc = cs.kernel_case(device, mesh, (3, 2), torch.float32)
+        if batch:
+            disc, nu, linq, x, bc = cs.ensemble_kernel_case(device, mesh, torch.float32)
+            lead = (x.shape[0],)
+        else:
+            disc, linq, x, bc = cs.kernel_case(device, mesh, (degree, degree - 1), torch.float32)
+            nu, lead = cs.KERNEL_NU, ()
         x_in = x if lattice else _gather_v(disc, x)
         fn = cell_kernel.cell_apply_F_lattice if lattice else cell_kernel.cell_apply_F
         for stokes in (True, False):
             lin = None if stokes else linq
             out[f"{mesh[0]}x{mesh[1]} {'stokes' if stokes else 'newton'}"] = cs.device_ms(
-                lambda: fn(disc, cs.KERNEL_NU, cs.KERNEL_INV_DT, lin, x_in, stokes=stokes)
+                lambda: fn(disc, nu, cs.KERNEL_INV_DT, lin, x_in, stokes=stokes)
             )
         if scatter_v_bc is not None:
-            loc = fn(disc, cs.KERNEL_NU, cs.KERNEL_INV_DT, linq, x_in, stokes=False)
+            loc = fn(disc, nu, cs.KERNEL_INV_DT, linq, x_in, stokes=False)
             out[f"{mesh[0]}x{mesh[1]} scatter bc"] = cs.device_ms(
                 lambda: scatter_v_bc(disc, loc, bc_diag=bc, x_u=x)
             )
+        if apply_f_kernel is None:
+            continue
+        for stokes in (True, False):
+            lin = None if stokes else linq
+            regime = "stokes" if stokes else "newton"
+            chosen = apply_f_kernel.block_shape(disc.deg_v, disc.nx * disc.ny * (lead[0] if lead else 1))
+            launch = lambda shape: apply_f_kernel._launch(disc, nu, cs.KERNEL_INV_DT, lin, x, bc, stokes, lead, shape)
+            want = launch(chosen)
+            out[f"{mesh[0]}x{mesh[1]} fused {regime} bc chosen shape"] = chosen
+            for shape in range(len(apply_f_kernel.BLOCK_SHAPES[disc.deg_v])) if shapes else (chosen,):
+                tile = apply_f_kernel.block_tile(disc.deg_v, shape)
+                key = f"{mesh[0]}x{mesh[1]} fused {regime} bc shape {shape} tile {tile[0]}x{tile[1]}"
+                if not torch.equal(launch(shape), want):
+                    raise RuntimeError(f"{key}: the output differs from block shape {chosen}'s")
+                out[key] = cs.device_ms(lambda: launch(shape))
+                out[f"{key} recompute"] = recompute_ratio(disc.nx, disc.ny, tile)
     print(json.dumps(out))
 
 
@@ -148,12 +191,18 @@ def main():
                    help="only time the kernels, at every multigrid level or at --mesh")
     p.add_argument("--mesh", action="append", default=None, metavar="NX,NY",
                    help="with --kernel-only: a Q3/Q2 shape to time (repeatable)")
+    p.add_argument("--degree", type=int, default=3, choices=(2, 3),
+                   help="with --kernel-only: the velocity degree (Q3/Q2 or Q2/Q1)")
+    p.add_argument("--batch", action="store_true",
+                   help="with --kernel-only: config 5's 64 members (Q2/Q1) in each launch")
+    p.add_argument("--shapes", action="store_true",
+                   help="with --kernel-only: time apply_F_fused at each block shape it is built with")
     a = p.parse_args()
     if a.compare:
         compare(*a.compare)
     elif a.root and a.kernel_only:
         meshes = [tuple(int(v) for v in m.split(",")) for m in a.mesh] if a.mesh else None
-        kernel_only(a.root, a.tag, meshes)
+        kernel_only(a.root, a.tag, meshes, a.shapes, a.degree, a.batch)
     elif a.root:
         measure(a.root, a.tag, a.save)
     else:
