@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Phases (each raises on failure; none catches another's).  They run in this
-order, except that phases 21 and 24 run right after phase 4, phase 6
-right after phase 5, phase 19 right after phase 10 (on its solver),
-phases 23, 32, 25, 26 and 13 after phase 19, phases 15-17, 20, 33, 28 and
+order, except that phase 37 runs beside phase 11, and phases 21
+and 24 run right after phase 4, phase 6 right after phase 5,
+phase 19 right after phase 10 (on its solver), phases 23, 32, 25, 26 and
+13 after phase 19, phases 15-17, 20, 33, 28 and
 11 after them (20 and 33 after 16, 28 after 17), and the card-vs-CPU
 phases 8, 12, 14, 27, 18, 22, 29 and 31 with phase 30 after those, then
 phases 36 and 35.  Beside them, other processes run: from phase 6 on
@@ -18,8 +19,8 @@ of phase 9 until their comparison) and from phase 36's end or phase 13's
 end, whichever comes first, phase 35's (each a chain of device
 synchronizations and host round trips of ranks sharing the card, which
 wait for it asleep); and from phase 13's end phase 30's combinations and
-then the card sides of the card-vs-CPU phases, in ``CARD_WORKERS`` worker
-processes on the card, beside phases 15-17, 20, 33, 28 and 11.  The
+the card sides of the card-vs-CPU phases, the longest first (``CARD_ORDER``),
+in ``CARD_WORKERS`` worker processes on the card, beside phases 15-17, 20, 33, 28 and 11.  The
 card-vs-CPU phases then only compare what the workers sent back.  Every
 process that drives the card slows the others (the card switches between
 their contexts): phase 36's ranks beside phase 6 made it take 2.3 times
@@ -331,6 +332,28 @@ as long, so they start after it:
                 the seam bytes; then, on every rank's tile, the kernel
                 checks of phase 35 in f32 at every level of the tile's
                 chain (150x50 down to 10x2) and the round trip;
+ 37. dd-simplex -- the ``-M`` x-strips (``dist/simplex.py``, one process
+                per strip, the ranks sharing the card under gloo) against
+                one rank on the card, no dense Schur leg on either side (a
+                strip's legs iterate), every run one Newton iteration (a
+                depth cut, ``DD_SIMPLEX_NEWTON``): (a) at
+                ``SIMPLEX_CHECK_MESH`` (24x10), Re 20, tol 1e-10, all-f64
+                Cahouet-Chabard with one Lp cycle, consistent sign, the
+                first host step on 2 and on 4 strips and one
+                ``solve_fused`` step on 2, the tangent solve capped at 10
+                outers (``DD_SIMPLEX_CAP``); (b) BASELINE config 3 at full
+                width (``CONFIG3_ARGV``, 60x40, 21,997 DoFs, all-f64) on 2
+                strips, capped at 20 (``DD_SIMPLEX_CONFIG3_CAP``); the
+                one-rank references in the 4-strip run's processes after
+                its strip run.  Gates: equal Newton counts, Krylov counts
+                within 1 per solve (both sides stop at the cap: these two
+                cannot part), the Newton residual where the step ended
+                within 1e-8 of one rank's (what the capped solve reached),
+                drag and both fields within 1e-8 of their largest
+                magnitude, the strip round trip bit for bit, no launch of
+                our kernels on any rank; per rank the seam exchanges,
+                all-reduces and seam bytes per outer iteration, and the
+                wall beside one rank's;
  34. report   -- one JSON line of per-kernel results, ``apply_F_fused``
                 first, then ``cell_apply_F`` and ``scatter_v_bc`` (0
                 launches on every path: only the checks launch them):
@@ -342,7 +365,7 @@ as long, so they start after it:
                 with every path's launches -- the fused 300x100 path's, the
                 ensemble's, the cavity's and the ensemble matrix's among
                 them, 0 on the simplex paths, which run no hand-written
-                kernel, phase 33's included -- and every shape's times
+                kernel, phases 33 and 37 included -- and every shape's times
                 beside them, the batched launches' included), the nvidia-smi
                 line, then the final ``{"ok": true, "device": ...}`` line.
 
@@ -380,7 +403,16 @@ took 1,226 s; this one 1,021 s, up to seventeen processes driving the
 card at once, each two- to threefold slower) -- then ensemble-matrix's
 (a) at width, its one step (535 s there) as long as the other five
 together, the card workers' long pole (its 16x8 card-vs-CPU check stays
-in phase 29) -- never a mesh, the simplex check, the fused check,
+in phase 29) -- then the new phase 37's runs to one Newton iteration
+of a tangent solve capped at 10 outers, 20 for config 3
+(``DD_SIMPLEX_NEWTON``, ``DD_SIMPLEX_CAP``, ``DD_SIMPLEX_CONFIG3_CAP``;
+whole, its runs made the script 1,325-1,470 s, two Newton iterations
+capped at 20, first and alone, 1,222 s, capped at 10 beside config 1
+1,138-1,194 s), run beside config 1, whose host-bound launches leave the
+card idle, its one-rank references in the 4-strip run's processes, with
+the card workers four and taking their jobs longest first by their walls
+in a whole run (``CARD_ORDER``)
+-- never a mesh, the simplex check, the fused check,
 the unsteady check's second step, the ensemble's B = 64, nor a kernel
 check's shape.  If the cavity phases ever need room,
 cavity-ghia goes to 64x64 (Ghia's own 129^2 velocity grid).  The cuts are
@@ -582,8 +614,10 @@ ENSEMBLE_MATRIX_STEPS = 1
 # five together; dropped when the depth cuts left too little to cut)
 ENSEMBLE_MATRIX_WIDTH = tuple(range(1, len(ENSEMBLE_MATRIX)))
 # the worker processes on the card (``card_pool``): ensemble-matrix's
-# combinations, then the card sides of ``CARD_SIDES``, from phase 13's end
-CARD_WORKERS = 3
+# combinations and the card sides of ``CARD_SIDES``, from phase 13's end
+# (four: with three, their last job ended 130 s after this process's
+# phases, the script's critical path)
+CARD_WORKERS = 4
 # the CPU sides' worker processes run at this niceness: they have the most
 # slack, and leave the host's cores first to the timed paths, the card
 # workers and the decomposed ranks, which wait on the card
@@ -644,6 +678,26 @@ DD_CHECK_NUS = (1 / 20.0, 1 / 40.0, 1 / 70.0, 1 / 100.0)
 # dd-north: phase 9's step on four 150x50 tiles
 DD_NORTH_TILES = (2, 2)
 DD_NORTH_TILE = (UNSTEADY_MESH[0] // DD_NORTH_TILES[0], UNSTEADY_MESH[1] // DD_NORTH_TILES[1])
+# dd-simplex: the -M x-strips (dist/simplex.py) against one rank on the card.
+# (a) SIMPLEX_CHECK_MESH: the first host unsteady step on 2 strips and on
+# DD_SIMPLEX_STRIPS_WIDE, one solve_fused step on 2; (b) config 3
+# (CONFIG3_ARGV, 60x40, 21,997 DoFs) on 2 strips; the dense Schur legs off
+# on both sides (a strip's legs iterate).  Every run is cut (the depth
+# cut) to DD_SIMPLEX_NEWTON Newton iterations, its tangent solve capped at
+# DD_SIMPLEX_CAP outers, config 3's at DD_SIMPLEX_CONFIG3_CAP: every
+# collective of ranks sharing the card is a device synchronization and a
+# host round trip, 120-190 seam exchanges and 270-390 all-reduces per outer
+# on strips; whole, (a) and (b) took 154-399 s per run and made the script
+# 1,324.7-1,470.4 s beside the other phases; two Newton iterations capped
+# at 10 beside config 1 made config 1 2.5-2.8 times as long and the script
+# 1,137.8-1,194.0 s.  Capped, the Krylov counts of both sides are the cap:
+# tests/test_torch_dist_simplex.py holds whole solves on strips to one
+# rank's counts and fields
+DD_SIMPLEX_STRIPS_WIDE = (4, 1)
+DD_SIMPLEX_RE = 20.0
+DD_SIMPLEX_CAP = 10
+DD_SIMPLEX_CONFIG3_CAP = 20
+DD_SIMPLEX_NEWTON = 1
 SOURCES = {
     "apply_F_fused": "navier_stokes_solver_tpu_torch/csrc/apply_f_fused.cu",
     "cell_apply_F": "navier_stokes_solver_tpu_torch/csrc/cell_apply_f.cu",
@@ -1870,6 +1924,19 @@ def cpu_job(name):
 # card after ensemble-matrix's combinations (``card_job``), in this order
 CARD_SIDES = ("unsteady-check", "matrix", "simplex-check", "cavity-check", "fused-check", "ensemble-check",
               "ensemble-matrix-check", "ensemble-rest-check")
+# the order in which the card workers take their jobs (ensemble-matrix's
+# combinations by index, the card sides by name): the longest first, from
+# their walls in two whole runs of this script on an NVIDIA H100 80GB HBM3,
+# 700.00 W (four workers beside the -M phases) -- (d) 395-415 s,
+# simplex-check 381-405 s, fused-check 308-315 s, unsteady-check ~240 s,
+# matrix ~200 s, ensemble-matrix-check ~140 s, (e) 110 s, (c) 108 s,
+# cavity-check 73-79 s, ensemble-rest-check ~70 s, ensemble-check 43-52 s,
+# (f) 42 s, (b) 0.5 s; each worker takes the next job when it is free
+CARD_ORDER = (
+    ("matrix", 3), ("card", "simplex-check"), ("card", "fused-check"), ("card", "unsteady-check"),
+    ("card", "matrix"), ("card", "ensemble-matrix-check"), ("matrix", 4), ("matrix", 2), ("card", "cavity-check"),
+    ("card", "ensemble-rest-check"), ("card", "ensemble-check"), ("matrix", 5), ("matrix", 1),
+)
 
 
 def card_job(name):
@@ -3596,6 +3663,208 @@ def phase_dd_north(device, unsteady, run=None):
     return {"wall_s": r0["wall_s"], "krylov": r0["krylov"], "counts": counts, "collectives": col, "errs": errs}
 
 
+def check_no_launches(counts, what):
+    """Raise unless ``counts`` (``read_counts``) show no launch of the
+    hand-written kernels: the -M simplex operators apply per-element
+    matrices, and no -M path launches a kernel of ours."""
+    launched = {name: c["launches"] for name, c in counts.items() if c["launches"]}
+    if launched:
+        raise RuntimeError(f"{what} launched {launched}: no -M path may")
+
+
+def dd_simplex_options(device, case, dd=None):
+    """``SolverOptions`` of a dd-simplex run on this process (a rank of
+    ``dd``, or alone): ``case`` "check" -- the -M ``SIMPLEX_CHECK_MESH``
+    channel, Re ``DD_SIMPLEX_RE``, FGMRES basis 30 + blockTriangular, tol
+    1e-10, all-f64 Cahouet-Chabard with one Lp cycle (dd-check's
+    configuration), consistent sign, one step of ``UNSTEADY_DT`` --, or
+    "config3": ``CONFIG3_ARGV`` under the all-f64 preconditioner; the dense
+    Schur legs off in both (a strip's legs iterate)."""
+    import dataclasses
+
+    from navier_stokes_solver_tpu_torch.api import SolverOptions
+    from navier_stokes_solver_tpu_torch.cli.common import parse_options
+    from navier_stokes_solver_tpu_torch.precond import PrecondConfig
+
+    if case == "config3":
+        return dataclasses.replace(
+            parse_options(CONFIG3_ARGV, unsteady=True), dense_schur=False, verbose=False, dd=dd, device=device,
+            precond_config=PrecondConfig(vmult_dtype=None, mg_dtype=None),
+        )
+    return SolverOptions(
+        mesh_size=SIMPLEX_CHECK_MESH, read_mesh_from_file=True, Re=DD_SIMPLEX_RE, solver_type=1, tolerance=1e-10,
+        preconditioner_type=1, krylov_basis=30, time_step=UNSTEADY_DT, time_span=UNSTEADY_DT, verbose=False,
+        precond_config=PrecondConfig(schur_mode="cahouet", cc_lp_cycles=1, vmult_dtype=None, mg_dtype=None),
+        consistent_continuity=True, dense_schur=False, device=device, dd=dd,
+    )
+
+
+def dd_simplex_run(device, case, mode, dd=None):
+    """One dd-simplex run on this process (a rank of ``dd``, or alone):
+    ``mode`` "host" (the first step: ``solve(direct=True)``; config 3: the
+    CLI's ``solve()``) or "fused" (one ``solve_fused`` step), the step cut
+    to ``DD_SIMPLEX_NEWTON`` Newton iterations, each tangent solve capped
+    at ``DD_SIMPLEX_CAP`` outers (config 3's at
+    ``DD_SIMPLEX_CONFIG3_CAP``).  Returns the solver and the wall,
+    per-solve Krylov counts, Newton counts, the Newton residual where the
+    step ended, drag and lift, global fields, launches (counts zeroed just
+    before the run, read just after) and the rank's collectives."""
+    import torch
+
+    from navier_stokes_solver_tpu_torch.api import NSSolver
+
+    cap = DD_SIMPLEX_CONFIG3_CAP if case == "config3" else DD_SIMPLEX_CAP
+    s = NSSolver(dd_simplex_options(device, case, dd)).setup()
+    s.KRYLOV_MAXITER, s.NEWTON_MAX_ITERS = cap, DD_SIMPLEX_NEWTON
+    if s.mesh is not None:
+        for k in s.mesh.counts:
+            s.mesh.counts[k] = 0
+    reset_counts()
+    t0 = time.perf_counter()
+    if mode == "fused":
+        s.solve_fused(newton_max=DD_SIMPLEX_NEWTON, krylov_maxiter=cap)
+    else:
+        s.solve(direct=case == "check")
+    if s.device.type == "cuda":
+        torch.cuda.synchronize(s.device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    u, p = s.fields()
+    if mode == "fused":
+        steps = steps_of(s)
+        krylov = [h["krylov_iters"] for h in steps]
+        newton = [h["newton_iters"] for h in steps]
+        residual = steps[-1]["newton_residual"]
+    else:
+        krylov = [h["krylov_iters"] for h in solves_of(s)]
+        newton = [len(krylov)]
+        residual = s.newton_residual
+    return s, {"wall_s": wall, "setup_s": s.setup_seconds, "krylov": krylov, "newton": newton,
+               "residual": float(residual), "drag": s.drag_force, "lift": s.lift_force, "u": u, "p": p,
+               "counts": counts, "n_dofs": s.n_dofs,
+               "collectives": None if s.mesh is None else dict(s.mesh.counts)}
+
+
+def dd_simplex_rank(rank, devices, jobs, dd, refs=()):
+    """The runs ``jobs`` ((case, mode) each) of ``dd_simplex_run`` one after
+    another on this rank of ``dd`` (spawned by ``dist.launch``), each
+    followed, on its strip, by a seeded global (u, p) through
+    ``strip_blocks`` and back through ``all_gather_simplex_blocks``
+    ("round_trip": True when every element comes back bit for bit); then,
+    on ranks below ``len(refs)``, the one-rank reference ``refs[rank]`` (a
+    (case, mode), ``dd_simplex_run`` alone, no collective), the ranks'
+    references side by side.  Returns ``{"strips": [...], "reference":
+    ...}``, the strips' global fields from rank 0 alone."""
+    import numpy as np
+    import torch
+
+    from navier_stokes_solver_tpu_torch.dist import all_gather_simplex_blocks, strip_blocks
+    from navier_stokes_solver_tpu_torch.ops import Blocks
+
+    outs = []
+    for case, mode in jobs:
+        s, out = dd_simplex_run(devices, case, mode, dd)
+        if rank:
+            out["u"] = out["p"] = None
+        tables = s.dd_simplex
+        g = np.random.default_rng(0)
+        # zero on the lattice points no triangle touches (inside the
+        # triangulated channel's cylinder hole): no strip holds them
+        held = lambda ids, n: np.isin(np.arange(n), ids[ids >= 0])
+        x = Blocks(torch.as_tensor(g.standard_normal((2, tables.n_nodes_v_global))
+                                   * held(tables.v_global, tables.n_nodes_v_global)),
+                   torch.as_tensor(g.standard_normal(tables.n_nodes_p_global)
+                                   * held(tables.p_global, tables.n_nodes_p_global)))
+        back = all_gather_simplex_blocks(strip_blocks(x, s.disc, tables), s.disc, tables)
+        out["round_trip"] = all(np.array_equal(a, b.numpy()) for a, b in zip(back, x))
+        outs.append(out)
+    ref = dd_simplex_run(torch.device(devices[rank]), *refs[rank])[1] if rank < len(refs) else None
+    return {"strips": outs, "reference": ref}
+
+
+def dd_simplex_compare(tag, one, ranks):
+    """The strips (``ranks``, rank 0's fields) against one rank, both
+    capped (a fixed sequence of operations, which the strips change only by
+    the rounding of their seam sums and products): Krylov counts within 1
+    per solve and equal Newton counts (both the cap: they cannot part), the
+    Newton residual where the step ended, drag and both fields within 1e-8
+    of their largest magnitude, the round trip bit for bit, no launch of
+    our kernels on any rank.  Returns the gaps."""
+    import numpy as np
+
+    dd = ranks[0]
+    if dd["newton"] != one["newton"]:
+        raise RuntimeError(f"{tag}: Newton iterations {dd['newton']} against {one['newton']} on one rank")
+    if len(dd["krylov"]) != len(one["krylov"]) or any(abs(a - b) > 1 for a, b in zip(dd["krylov"], one["krylov"])):
+        raise RuntimeError(f"{tag}: Krylov per solve {dd['krylov']} against {one['krylov']} on one rank")
+    gaps = {"residual": abs(dd["residual"] - one["residual"]), "drag": abs(dd["drag"] - one["drag"]),
+            "lift": abs(dd["lift"] - one["lift"]),
+            "u": float(np.abs(dd["u"] - one["u"]).max()), "p": float(np.abs(dd["p"] - one["p"]).max())}
+    scale = {"residual": abs(one["residual"]), "drag": abs(one["drag"]), "u": float(np.abs(one["u"]).max()),
+             "p": float(np.abs(one["p"]).max())}
+    for k, v in scale.items():
+        if not gaps[k] <= 1e-8 * v:
+            raise RuntimeError(f"{tag}: {k} {gaps[k]!r} apart (> 1e-8 x {v!r})")
+    if not all(r["round_trip"] for r in ranks):
+        raise RuntimeError(f"{tag}: the strip round trip on the card is not bit for bit")
+    for r, rec in enumerate(ranks):
+        check_no_launches(rec["counts"], f"{tag}: rank {r}")
+    return gaps
+
+
+def phase_dd_simplex(device):
+    """The -M x-strips (``dist/simplex.py``; one process per strip, the
+    ranks sharing the card under gloo) against one rank on the card: (a)
+    at ``SIMPLEX_CHECK_MESH``, the first host unsteady step on 2 strips and
+    on ``DD_SIMPLEX_STRIPS_WIDE`` and one ``solve_fused`` step on 2; (b)
+    config 3 at full width on 2 strips -- every run cut to one capped
+    tangent solve (``DD_SIMPLEX_NEWTON``, ``DD_SIMPLEX_CAP``,
+    ``DD_SIMPLEX_CONFIG3_CAP``), against one rank with the same iterative
+    Schur legs (not phase 15's dense ones).  The 2-strip
+    runs go one after another on one pair of ranks, beside the wide run,
+    whose ranks then run the one-rank references side by side (a process
+    of their own each: this process's launch counters stay the other
+    phases'); each is a chain of device synchronizations and host round
+    trips, not a timing.  Gates: ``dd_simplex_compare``'s."""
+    from navier_stokes_solver_tpu_torch.dist import launch
+
+    card = nvidia_smi()
+    devs = lambda n: [str(device)] * n
+    pair = [("check", "host"), ("check", "fused"), ("config3", "host")]
+    n = DD_SIMPLEX_STRIPS_WIDE[0]
+    if n < len(pair):
+        raise ValueError(f"the {n}-strip run's ranks cannot hold the {len(pair)} one-rank references")
+
+    def timed_launch(*args):
+        t0 = time.perf_counter()
+        return launch(*args), time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        two = ex.submit(timed_launch, dd_simplex_rank, 2, devs(2), pair, (2, 1))
+        wide = ex.submit(timed_launch, dd_simplex_rank, n, devs(n), pair[:1], DD_SIMPLEX_STRIPS_WIDE, pair)
+        (two, wall2), (wide, wall_n) = two.result(), wide.result()
+    one = {job: wide[i]["reference"] for i, job in enumerate(pair)}
+    runs = [(job, 2, [r["strips"][i] for r in two], wall2) for i, job in enumerate(pair)]
+    runs.append((pair[0], n, [r["strips"][0] for r in wide], wall_n))
+    out = {"counts": [], "gaps": {}, "walls": {}}
+    for (case, mode), n_strips, ranks, wall in runs:
+        tag = f"dd-simplex {case} {mode} {n_strips} strips"
+        r0, ref_run = ranks[0], one[(case, mode)]
+        if case == "config3" and r0["n_dofs"] != CONFIG3_DOFS:
+            raise RuntimeError(f"{tag}: DoF count {r0['n_dofs']} != {CONFIG3_DOFS}")
+        gaps = dd_simplex_compare(tag, ref_run, ranks)
+        out["gaps"][tag] = gaps
+        outers = max(1, sum(r0["krylov"]))
+        print(f"[dd-simplex] {case} ({r0['n_dofs']} DoFs) {mode} on {n_strips} strips ({n_strips} ranks sharing {card}, gloo through the host, beside the card workers and config 1): wall {r0['wall_s']!r} s (launch wall {wall:.1f} s for its ranks' runs{', the one-rank references included' if n_strips == n else ''}; one rank on the card {ref_run['wall_s']!r} s), Newton {r0['newton']} (one rank {ref_run['newton']}), Krylov per solve {r0['krylov']} (one rank {ref_run['krylov']}), Newton residual {r0['residual']!r} (one rank {ref_run['residual']!r}), gaps {json.dumps(gaps)}, round trip bit for bit, no launch of our kernels on any rank")
+        for r, rec in enumerate(ranks):
+            c = rec["collectives"]
+            print(f"[dd-simplex] {case} {mode} {n_strips} strips rank {r}: collectives {json.dumps(c)}; per outer iteration {c['seam_exchanges'] / outers:.1f} seam exchanges, {c['all_reduces'] / outers:.1f} all-reduces, {c['seam_bytes'] / outers:.0f} seam bytes sent")
+        out["counts"].append(summed_counts(r["counts"] for r in ranks))
+        out["walls"][tag] = (r0["wall_s"], ref_run["wall_s"])
+    out["counts"] = summed_counts(out["counts"])
+    return out
+
+
 def summed_counts(runs):
     """``read_counts`` records of several runs, the launches added."""
     out = {}
@@ -3658,6 +3927,7 @@ def main():
     device = phase_device()
     import torch
 
+
     print(
         f"[budget] depth cuts taken: stationary bench solves {SOLVES} of 2; unsteady 300x100 steps {UNSTEADY_STEPS} of 2 "
         f"(of the 800 of T = 8); config3-lu and config3-lu-fused {CONFIG3_LU_STEPS} of 20 steps (of the record's 800); "
@@ -3675,7 +3945,9 @@ def main():
         f"ensemble-ir B {ENSEMBLE_B} and {ENSEMBLE_STEPS} timed steps, "
         f"ensemble-rest-check's four cases, dd-check at {DD_CHECK_MESH[0]}x{DD_CHECK_MESH[1]} under "
         f"{len(DD_CHECK_TILES)} tile grids, dd-north at {UNSTEADY_MESH[0]}x{UNSTEADY_MESH[1]} on "
-        f"{DD_NORTH_TILES[0]} x {DD_NORTH_TILES[1]} tiles"
+        f"{DD_NORTH_TILES[0]} x {DD_NORTH_TILES[1]} tiles. Cut: dd-simplex's runs (24x10 on 2 and "
+        f"{DD_SIMPLEX_STRIPS_WIDE[0]} strips, config 3 on 2) to {DD_SIMPLEX_NEWTON} Newton iteration(s), the "
+        f"tangent solve capped at {DD_SIMPLEX_CAP} outers, config 3's at {DD_SIMPLEX_CONFIG3_CAP}"
     )
     phase_build()
     errs = phase_check(device)
@@ -3747,12 +4019,15 @@ def main():
     lap("cavity-ghia, cavity-cli and profile")
     timed_done.set()
     # from here on, beside the -M phases and config 1 in this process:
-    # ensemble-matrix's combinations and then the card sides of the
-    # card-vs-CPU phases in CARD_WORKERS worker processes on the card (a
-    # host-bound path: the card idles most of the time under each of them)
+    # ensemble-matrix's combinations and the card sides of the card-vs-CPU
+    # phases in CARD_WORKERS worker processes on the card, the longest
+    # first (CARD_ORDER; a host-bound path: the card idles most of the
+    # time under each of them)
     card_pool = cpu_pool(CARD_WORKERS, initializer=wait_asleep)
-    matrix_runs = start_ensemble_matrix(card_pool)
-    card = {name: card_pool.submit(card_job, name) for name in CARD_SIDES}
+    jobs = {(kind, key): card_pool.submit(ensemble_matrix_run if kind == "matrix" else card_job, key)
+            for kind, key in CARD_ORDER}
+    matrix_runs = [jobs[("matrix", i)] for i in ENSEMBLE_MATRIX_WIDTH]
+    card = {name: jobs[("card", name)] for name in CARD_SIDES}
     s3, config3 = phase_config3(device)
     print(f"[config3] setup {config3['setup_s']:.3f} s, per-step walls {[r['wall_s'] for r in config3['steps']]} s, Newton iterations per step {[r['newton_iterations'] for r in config3['steps']]}, outers per step {[r['outer'] for r in config3['steps']]}")
     simplex3 = (s3.disc, *s3.fields())
@@ -3769,11 +4044,21 @@ def main():
         _, simplex_file = phase_simplex_file(device, tmp)
         phase_native_io(state300, simplex3, os.path.join(tmp, "curved.msh"))
     lap("simplex-file and native-io")
+    # dd-simplex beside config 1, in a thread: its ranks' every collective
+    # waits for the card, which config 1's host-bound launches leave idle
+    # (beside the other phases from phase 13's end it took 950 s and
+    # slowed them all; first and alone it added 144.9 s to the script,
+    # after config 1 135.7 s)
+    simplex_pool = concurrent.futures.ThreadPoolExecutor(1)
+    simplex_future = simplex_pool.submit(phase_dd_simplex, device)
     s1, config1 = phase_config1(device)
     c1outer = phase_outer(s1, regimes=(True,), tag="config1-outer")
     print(f"[config1] setup {config1['setup_s']:.3f} s, solve wall {config1['wall_s']!r} s, {config1['outer']} outers; Stokes regime per outer iteration: {c1outer['stokes']['kernels']!r} device kernels, {c1outer['stokes']['device_ms']!r} device ms, {c1outer['stokes']['readbacks']!r} readbacks, busy {c1outer['stokes']['busy']:.4f}")
     del s1
     lap("config1")
+    dd_simplex = simplex_future.result()
+    simplex_pool.shutdown()
+    lap("dd-simplex (the wait for it after config1, which it ran beside)")
     # the card-vs-CPU phases: both sides ran in the worker processes
     with pool, card_pool:
         phase_unsteady_check(device, cpu["unsteady-check"], card["unsteady-check"])
@@ -3809,7 +4094,7 @@ def main():
         "ensemble_matrix": summed_counts(c["counts"] for c in matrix.values()),
         "cavity_ghia": cavity["counts"], "cavity_cli": cavity_cli["counts"],
         "ensemble_ir": ensemble_ir["counts"], "ensemble_simplex_lu": simplex_lu["counts"],
-        "dd_north": dd_north["counts"], "dd_check": dd_check["counts"],
+        "dd_north": dd_north["counts"], "dd_check": dd_check["counts"], "dd_simplex": dd_simplex["counts"],
     }
     print(kernel_line(errs, times, counts_by_path["dd_north"], counts_by_path))
     print(f"[profile] {len(PROFILE_WINDOWS)} profiler windows: {sum(a for a, _ in PROFILE_WINDOWS)} traces taken "

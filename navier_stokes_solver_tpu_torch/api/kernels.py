@@ -60,7 +60,7 @@ def assemble_kernel(
     )
     if is_batched(nu):
         return rhs, bnorm(rhs)
-    return rhs, norm_of(matfree.make_dot(disc))(rhs)
+    return rhs, norm_of(ops.make_dot(disc) if disc.decomposed else None)(rhs)
 
 
 def solve_kernel(

@@ -1,14 +1,15 @@
 """Shared CLI argument handling (getopt_long parity, test.cpp:37-105): the
 JAX package's flags, defaults and error messages, plus ``--device``.
 
-``--dd X,Y`` runs on X x Y tiles, one rank each (``dist/``): inside a
-process group (``dist.launch``) or under ``torchrun`` each rank runs its
-tile; otherwise the program spawns its ranks itself (``run_ranks``) -- gloo
-on the CPU or when ranks share a card (``--device cuda:0,cuda:0``), NCCL
-with a card per rank (``cuda``, rank r on ``cuda:r``).  ``--ir mixed``
-parses as in the JAX CLI; the run then stops when the solver is built,
-with the ``NotImplementedError`` that names its ROADMAP item (A.14), as
-does ``--dd`` with ``-M`` (A.D9b).
+``--dd X,Y`` runs on X x Y tiles, one rank each (``dist/``; with ``-M``,
+``--dd N`` runs on N x-strips of the triangle mesh, and a second count
+above 1 stops with the JAX package's 1-D refusal): inside a process group
+(``dist.launch``) or under ``torchrun`` each rank runs its tile; otherwise
+the program spawns its ranks itself (``run_ranks``) -- gloo on the CPU or
+when ranks share a card (``--device cuda:0,cuda:0``), NCCL with a card per
+rank (``cuda``, rank r on ``cuda:r``).  ``--ir mixed`` parses as in the
+JAX CLI; the run then stops when the solver is built, with the
+``NotImplementedError`` that names its ROADMAP item (A.14).
 """
 
 from __future__ import annotations

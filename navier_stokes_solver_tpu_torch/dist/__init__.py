@@ -14,9 +14,13 @@ all-reduced scalar, the same bits on every rank.  So there is no
 as it stands (and the direct LU, which needs the whole Jacobian, is
 ineligible on a tile).
 
-``make_mesh``'s ``'ens'`` axis shards an ensemble's members instead
-(``ensemble.run_sweep(mesh=...)``).  ``launch`` spawns the ranks.  The
-``-M`` simplex x-strips are not ported (ROADMAP.md A.D9b).
+The ``-M`` simplex mesh decomposes into 1-D x-strips instead
+(``dist.simplex``: ``decompose_simplex_disc`` builds every strip's tables,
+``simplex_strip`` lowers this rank's), one strip per rank of a
+``make_dd_mesh(n, 1)``; its operators exchange their seams with the left
+and right neighbours (``Mesh.strip_seam_sum``).  ``make_mesh``'s ``'ens'``
+axis shards an ensemble's members instead (``ensemble.run_sweep(mesh=...)``).
+``launch`` spawns the ranks.
 """
 
 from navier_stokes_solver_tpu_torch.dist.halo import (
@@ -25,6 +29,15 @@ from navier_stokes_solver_tpu_torch.dist.halo import (
     gather_blocks,
     scatter_blocks,
     tile_blocks,
+)
+from navier_stokes_solver_tpu_torch.dist.simplex import (
+    DecomposedSimplex,
+    all_gather_simplex_blocks,
+    decompose_simplex_disc,
+    gather_simplex_blocks,
+    scatter_simplex_blocks,
+    simplex_strip,
+    strip_blocks,
 )
 from navier_stokes_solver_tpu_torch.dist.mesh import (
     Mesh,
@@ -47,4 +60,11 @@ __all__ = [
     "gather_blocks",
     "all_gather_blocks",
     "tile_blocks",
+    "DecomposedSimplex",
+    "decompose_simplex_disc",
+    "simplex_strip",
+    "scatter_simplex_blocks",
+    "gather_simplex_blocks",
+    "strip_blocks",
+    "all_gather_simplex_blocks",
 ]

@@ -11,6 +11,9 @@ neighbours, its device and the collectives the solver needs:
     round of messages with the up to eight neighbours, added as the JAX
     package's x-exchange then y-exchange add, so that corner nodes (four
     tiles) come out right and every copy of a seam node is the same;
+  * ``strip_seam_sum``: the table-driven seam exchange of the ``-M``
+    simplex x-strips (``dist/simplex.py``) with the left and right
+    neighbour strips;
   * ``all_reduce``: the sum over the tiles (``psum``, MPI allreduce), in
     rank order on every rank, so that every rank holds the same bits and
     takes the same branch;
@@ -38,6 +41,7 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as Fn
 
 __all__ = ["Mesh", "make_mesh", "make_dd_mesh", "launch", "rank_device", "backend_for"]
 
@@ -175,6 +179,40 @@ class Mesh:
                 other[..., :, NX - 1:] += got[(dy, 1)]
             out[..., row, :] += other
         return out
+
+    def strip_seam_sum(self, v: torch.Tensor, seam) -> torch.Tensor:
+        """Complete the partial sums of the strip vector ``v`` [..., n_loc]
+        with the neighbour strips' copies of the shared nodes (``seam``, a
+        ``unstructured.tri.SeamTables``): this strip sends ``v[..., send_r]``
+        to its right neighbour and ``v[..., send_l]`` to its left one (the
+        sentinel reads an appended zero), receives theirs, and adds as the
+        JAX package's ring does, ``v + from_l[add_l] + from_r[add_r]``.  A
+        strip end has no neighbour there: it adds a zero buffer, the bits
+        of the JAX ring's all-sentinel wraparound buffer, and sends
+        nothing.  Under gloo on a card the buffers go through the host in
+        one copy each way."""
+        left, right = self._neighbour(0, -1), self._neighbour(0, 1)
+        lead, B = v.shape[:-1], seam.send_l.shape[0]
+        from_l = from_r = None
+        if left is not None or right is not None:
+            pad = Fn.pad(v, (0, 1))
+            keys = [k for k, r in (("l", left), ("r", right)) if r is not None]
+            table = {"l": seam.send_l, "r": seam.send_r}
+            send = torch.cat([pad[..., table[k]].reshape(-1) for k in keys])
+            send = send.cpu() if self.host_route else send
+            recv = torch.empty_like(send)
+            nbs = {"l": left, "r": right}
+            parts = list(zip(keys, send.chunk(len(keys)), recv.chunk(len(keys))))
+            self._p2p([(s_, nbs[k]) for k, s_, _ in parts], [(r_, nbs[k]) for k, _, r_ in parts])
+            self.counts["seam_exchanges"] += 1
+            self.counts["seam_bytes"] += send.numel() * send.element_size()
+            got = {k: r_.reshape(*lead, B) for k, r_ in zip(keys, self._in(recv).chunk(len(keys)))}
+            # the left neighbour's buffer for its right neighbour, and back
+            from_l, from_r = got.get("l"), got.get("r")
+        zero = torch.zeros((*lead, B + 1), dtype=v.dtype, device=v.device)
+        from_l = zero if from_l is None else Fn.pad(from_l, (0, 1))
+        from_r = zero if from_r is None else Fn.pad(from_r, (0, 1))
+        return v + from_l[..., seam.add_l] + from_r[..., seam.add_r]
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)

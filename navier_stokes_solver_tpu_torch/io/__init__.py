@@ -8,12 +8,18 @@ from navier_stokes_solver_tpu_torch.io.checkpoint import (
     save_time_state,
 )
 from navier_stokes_solver_tpu_torch.io.msh import read_msh, write_msh
-from navier_stokes_solver_tpu_torch.io.vtu import write_vtu, write_vtu_record, write_vtu_tri
+from navier_stokes_solver_tpu_torch.io.vtu import (
+    write_vtu,
+    write_vtu_record,
+    write_vtu_tri,
+    write_vtu_tri_record,
+)
 
 __all__ = [
     "write_vtu",
     "write_vtu_record",
     "write_vtu_tri",
+    "write_vtu_tri_record",
     "read_msh",
     "write_msh",
     "save_checkpoint",

@@ -14,8 +14,8 @@ the native file's layout, ending in a newline.  (The JAX package's Python
 writer leaves that last newline out, so its files differ by one byte with
 and without its native library.)  Triangle pieces (the ``-M`` backend)
 always use the Python writer, as in the JAX package, with no final
-newline.  ``write_vtu_tri_record`` (a decomposed simplex) waits for the
-port of the ``-M`` x-strips (ROADMAP.md A.D9b).
+newline; ``write_vtu_tri_record`` writes one such piece per x-strip of a
+decomposed simplex mesh and the ``.pvtu`` record.
 """
 
 from __future__ import annotations
@@ -24,13 +24,14 @@ import base64
 import os
 import re
 import struct
+import types
 
 import numpy as np
 
 from navier_stokes_solver_tpu_torch.geometry.space import FESpace
 from navier_stokes_solver_tpu_torch.native import write_vtu_native
 
-__all__ = ["write_vtu", "write_vtu_record", "write_vtu_tri", "read_vtu"]
+__all__ = ["write_vtu", "write_vtu_record", "write_vtu_tri", "write_vtu_tri_record", "read_vtu"]
 
 _VTK_TYPES = {"Float64": "<f8", "Int32": "<i4", "UInt8": "u1"}
 _DATA_ARRAY = re.compile(r'<DataArray type="(\w+)"(?: Name="(\w+)")?(?: NumberOfComponents="(\d+)")? '
@@ -232,6 +233,38 @@ def write_vtu_record(
                     None if tiles is None else (iy * nyl, (iy + 1) * nyl, ix * nxl, (ix + 1) * nxl)
                 ),
             )
+    pvtu = os.path.join(directory, f"{basename}_{counter:03d}.pvtu")
+    _write_pvtu(pvtu, pieces)
+    return pvtu
+
+
+def write_vtu_tri_record(
+    dd,
+    u: np.ndarray,
+    p: np.ndarray,
+    *,
+    directory: str = ".",
+    basename: str = "output",
+    counter: int = 0,
+) -> str:
+    """One piece per x-strip of a decomposed simplex mesh
+    (``dist.DecomposedSimplex``) with partitioning = strip id, and the
+    ``.pvtu`` record: the ``-M`` counterpart of ``write_vtu_record``'s
+    per-tile pieces (one piece per MPI rank, NSSolver.cpp:789-793).
+    ``u`` / ``p`` are the global fields."""
+    os.makedirs(directory, exist_ok=True)
+    detJ, dofs_p, coords_p = (dd.tables[k] for k in ("detJ", "dofs_p", "coords_p"))
+    u, p = np.asarray(u), np.asarray(p)
+    pieces = []
+    for t in range(dd.n_dev):
+        real = detJ[t] > 0  # padding elements have zero measure
+        n_loc = int((dd.p_global[t] >= 0).sum())
+        gid = dd.p_global[t][:n_loc]
+        local = types.SimpleNamespace(coords_p=coords_p[t][:n_loc], dofs_p=dofs_p[t][real])
+        piece = f"{basename}_{counter:03d}.{t}.vtu"
+        pieces.append(piece)
+        write_vtu_tri(local, u[:, gid], p[gid], os.path.join(directory, piece),
+                      partitioning=np.full(int(real.sum()), float(t)))
     pvtu = os.path.join(directory, f"{basename}_{counter:03d}.pvtu")
     _write_pvtu(pvtu, pieces)
     return pvtu

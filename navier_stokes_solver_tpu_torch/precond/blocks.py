@@ -199,9 +199,9 @@ class LinearContext:
     @functools.cached_property
     def dot(self):
         """The inner product of this context's vectors: the seam-weighted,
-        all-reduced one on a tile of a domain decomposition, else None
-        (the plain product)."""
-        return matfree.make_dot(self.disc)
+        all-reduced one on a tile or an x-strip of a domain decomposition
+        (the backend's ``make_dot``), else None (the plain product)."""
+        return self.ops.make_dot(self.disc) if self.disc.decomposed else None
 
     def krylov(self):
         """``(fgmres, cg, norm)`` of this context: the batched solvers and

@@ -99,8 +99,10 @@ def _inverse_f32(a: np.ndarray, device) -> torch.Tensor:
 def attach_dense_schur(disc, max_np: int = DENSE_SCHUR_MAX_NP):
     """``disc`` with the f32 dense inverses of the pressure mass and the
     pressure Laplacian attached (``dense_mp_raw_inv`` / ``dense_lp_inv``),
-    or unchanged when the pressure space has more than ``max_np`` nodes."""
-    if disc.n_nodes_p > max_np:
+    or unchanged when the pressure space has more than ``max_np`` nodes or
+    the disc is an x-strip (its operators are seam-partial, not the global
+    matrices: the legs iterate)."""
+    if disc.n_nodes_p > max_np or disc.decomposed:
         return disc
     return disc.replace(
         dense_mp_raw_inv=_inverse_f32(assemble_Mp_raw(disc), disc.device),

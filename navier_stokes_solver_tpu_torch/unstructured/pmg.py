@@ -1,6 +1,6 @@
 """P2 -> P1 p-multigrid for the simplex velocity block.
 
-The port of the JAX package's ``unstructured/pmg.py`` (single device).  On
+The port of the JAX package's ``unstructured/pmg.py``.  On
 an unstructured triangulation the coarse space is the order-reduced P1
 space on the same triangles (p-coarsening):
 
@@ -24,14 +24,23 @@ An ensemble's [B] ``nu`` builds one V-cycle for its B members (vectors
 [B, 2, n]): the transfers are shared, the element matrices and diagonals
 per member (``unstructured.ops``), the fine smoothing the batched GMRES
 smoother, the coarse solve the batched GMRES with a per-member stop.
+
+On an x-strip (``dist/simplex.py``) the transfers run through the strip's
+local tables: prolongation is pointwise (the seam copies stay equal with no
+exchange), restriction weighs each midpoint's contribution by its copy's
+1 / multiplicity and completes the vertex sums with the pressure-space seam
+exchange, the coarse operator's scatter ends with that exchange, and the
+smoother and the coarse GMRES take the strip's seam-weighted product.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as Fn
 
-from navier_stokes_solver_tpu_torch.krylov import bnorm, gmres, gmres_batched, tnorm
+from navier_stokes_solver_tpu_torch.krylov import bnorm, gmres, gmres_batched, norm_of
 from navier_stokes_solver_tpu_torch.ops.blocks import is_batched
 from navier_stokes_solver_tpu_torch.ops.matfree import LinearizationQ
 from navier_stokes_solver_tpu_torch.precond.mg import _gmres_smooth, as_dtype_scalar
@@ -50,10 +59,23 @@ def prolong(disc: SimplexDisc, xc: torch.Tensor) -> torch.Tensor:
     return torch.where(disc.pmg_vert < disc.n_nodes_p, vert, mid)
 
 
+def _vertex_values(disc: SimplexDisc, u: torch.Tensor) -> torch.Tensor:
+    """[..., n_nodes_v] -> its values at the P1 nodes [..., n_verts] (0 on a
+    strip's padding)."""
+    return Fn.pad(u, (0, 1))[..., disc.pmg_vert_v]
+
+
 def restrict(disc: SimplexDisc, rf: torch.Tensor) -> torch.Tensor:
-    """Transpose of ``prolong``: [(B,) 2, n_nodes_v] -> [(B,) 2, n_verts]."""
-    add = Fn.pad(0.5 * rf, (0, 1))[..., disc.pmg_mid].sum(dim=-1)
-    return rf[..., disc.pmg_vert_v] + add
+    """Transpose of ``prolong``: [(B,) 2, n_nodes_v] -> [(B,) 2, n_verts].
+    On a strip an edge two strips share is summed by both, so each copy of
+    a midpoint adds its 1 / multiplicity share, and the vertex sums are
+    completed by the seam exchange; the vertex part is pointwise."""
+    mid = 0.5 * rf
+    if disc.seam_v is not None:
+        mid = mid * disc.seam_v.weight
+    add = Fn.pad(mid, (0, 1))[..., disc.pmg_mid].sum(dim=-1)
+    add = sops._seam_sum(disc, disc.seam_p, add)
+    return _vertex_values(disc, rf) + add
 
 
 def _eval_v1(disc: SimplexDisc, u: torch.Tensor):
@@ -74,8 +96,7 @@ def make_apply_F1(disc, nu, inv_dt, linq1, *, stokes, bc_diag):
         elem = lambda loc: sops._elem_mv(Fe, loc.reshape(*shape, 6, 1)).reshape(*shape, 3, 2)
 
     def apply(x):
-        loc = elem(x.transpose(-1, -2)[..., disc.dofs_p, :])
-        y = sops._sum_rows(loc.reshape(*x.shape[:-2], -1, 2), disc.gather_p, True)
+        y = sops._scatter_p1(disc, elem(x.transpose(-1, -2)[..., disc.dofs_p, :]))
         return torch.where(disc.u_dirichlet_p1, bc_diag * x, y)
 
     return apply
@@ -89,7 +110,7 @@ def diag_F1(disc, nu, inv_dt, linq1, *, stokes):
     loc = sops._velocity_diag(
         disc.phi_p, disc.PWp, disc.Dp, disc.Lpe, disc.Mpe, nu, inv_dt, linq1, stokes
     )
-    d = sops._sum_rows(loc.reshape(*loc.shape[:-3], -1, 2), disc.gather_p, True)
+    d = sops._scatter_p1(disc, loc)
     return torch.where(d == 0.0, 1.0, d)
 
 
@@ -131,7 +152,7 @@ def make_p_vcycle(
     else:
         vals, grads = sops._eval_v(disc, state_u)
         linq = LinearizationQ(u=vals, gradu=grads, p=None)
-        v1, g1 = _eval_v1(disc, state_u[..., disc.pmg_vert_v])  # vertex injection
+        v1, g1 = _eval_v1(disc, _vertex_values(disc, state_u))  # vertex injection
         linq1 = LinearizationQ(u=v1, gradu=g1, p=None)
 
     A = sops.make_apply_F(disc, nu, inv_dt, linq, stokes=stokes, bc_diag=diag_f)
@@ -141,11 +162,16 @@ def make_p_vcycle(
     dinv = 1.0 / diag_f
     dinv1 = 1.0 / d1
 
-    coarse, norm_ = (gmres_batched, bnorm) if batched else (gmres, tnorm)
+    # the seam-weighted, all-reduced product on a strip (None: the plain one)
+    dot = sops.make_dot(disc) if disc.decomposed else None
+    if batched:
+        coarse, norm_ = gmres_batched, bnorm
+    else:
+        coarse, norm_ = functools.partial(gmres, dot=dot), norm_of(dot)
 
     def M(b):
         b = b.to(disc.dtype)
-        x = _gmres_smooth(A, dinv, b, torch.zeros_like(b), smooth_degree, batched=batched)
+        x = _gmres_smooth(A, dinv, b, torch.zeros_like(b), smooth_degree, batched=batched, dot=dot)
         r = torch.where(dir_fine, 0.0, b - A(x))
         rc = torch.where(dir_coarse, 0.0, restrict(disc, r))
         xc, _ = coarse(
@@ -153,7 +179,7 @@ def make_p_vcycle(
             maxiter=coarse_iters, M=lambda v: dinv1 * v, basis=coarse_iters,
         )
         x = x + torch.where(dir_fine, 0.0, prolong(disc, xc))
-        x = _gmres_smooth(A, dinv, b, x, smooth_degree, batched=batched)
+        x = _gmres_smooth(A, dinv, b, x, smooth_degree, batched=batched, dot=dot)
         return x.to(out_dtype)
 
     return M

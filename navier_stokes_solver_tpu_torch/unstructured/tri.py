@@ -1,6 +1,6 @@
 """Unstructured P2/P1 triangle discretization (the ``-M`` file-mesh path).
 
-The port of the JAX package's ``unstructured/tri.py`` (single device).  The
+The port of the JAX package's ``unstructured/tri.py``.  The
 reference's ``-M`` flag reads a gmsh mesh into a triangulation and switches
 to simplex elements (NSSolver.cpp:144-209, test.cpp:66-70).  A triangle mesh
 (from ``io.read_msh``, or by triangulating the internal channel grid) lowers
@@ -13,6 +13,13 @@ velocity ``[2, n_nodes_v]`` with P2 nodes = vertices then edge midpoints;
 pressure ``[n_nodes_p]`` at vertices.  Boundary ids follow the reference:
 6 wall, 7 inlet, 8 outlet, 10 cylinder (Dirichlet on {6, 7, 10}, Neumann on
 8).
+
+A ``SimplexDisc`` with ``seam_v`` / ``seam_p`` set is one x-strip of a
+decomposed mesh (``dist/simplex.py``): its node vectors are the strip's
+local, padded numbering, its scatters complete their seam sums with the
+neighbour strips through ``mesh`` (a ``dist.Mesh``), and its products
+weigh the seam nodes by ``SeamTables.weight``.  Without strips every such
+field is None and the disc is the whole mesh.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from navier_stokes_solver_tpu_torch.unstructured.elements import (
 )
 
 __all__ = [
+    "SeamTables",
     "SimplexDisc",
     "invert_scatter",
     "make_simplex_disc",
@@ -54,6 +62,27 @@ _FLOAT_FIELDS = (
     "phi_p_edge", "w_e",
 )
 _OPTIONAL_FLOAT_FIELDS = ("dense_mp_raw_inv", "dense_lp_inv")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SeamTables:
+    """The seam-exchange tables of one DoF space on one x-strip.
+
+    The strip's node vectors are padded to ``n_loc``; the nodes it shares
+    with its left / right neighbour strip are listed in ``send_l`` /
+    ``send_r`` (local indices, sentinel ``n_loc``: an unused buffer slot),
+    both sides ordered by global node id so that the buffers align.
+    ``add_l`` / ``add_r`` map each local node to its slot in the buffer
+    received from that neighbour (sentinel ``B``, the buffer length:
+    nothing to add).  ``weight`` is 1 / multiplicity per node (0 on
+    padding): the seam-weighted inner product (the Trilinos owned-DoF dot
+    analog)."""
+
+    send_l: torch.Tensor  # [B]
+    send_r: torch.Tensor  # [B]
+    add_l: torch.Tensor  # [n_loc]
+    add_r: torch.Tensor  # [n_loc]
+    weight: torch.Tensor  # [n_loc]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -82,23 +111,25 @@ class SimplexDisc:
     cyl_len: torch.Tensor  # [n_ce]
     cyl_normal: torch.Tensor  # [n_ce, 2] outward (into the cylinder)
     # unique-edge endpoint vertices ([n_edges, 2]; midpoint node n_verts + i
-    # sits on edge i)
-    edge_verts: torch.Tensor
+    # sits on edge i); None on a strip (its pmg_* tables replace them)
+    edge_verts: torch.Tensor | None
     # scatter-inverse tables (``invert_scatter``): row n lists the flat
     # element-contribution slots that add into node n, padded with the
     # sentinel (the flat length).  Every scatter is a padded gather plus a
     # sum over the small padded axis: deterministic, no atomics.
     gather_v: torch.Tensor  # [n_nodes_v, Kv] into [n_tri * 6]
     gather_p: torch.Tensor  # [n_nodes_p, Kp] into [n_tri * 3]
-    gather_ev: torch.Tensor  # [n_verts, Ke] into [2 * n_edges]
+    gather_ev: torch.Tensor | None  # [n_verts, Ke] into [2 * n_edges]; None on a strip
     # pressure nodes on the outlet boundary (id 8): Dirichlet rows of the
     # pressure Laplacian / convection-diffusion Schur legs
     p_outlet: torch.Tensor  # [n_nodes_p] bool
-    # P2 -> P1 p-multigrid transfer tables (unstructured/pmg.py):
+    # P2 -> P1 p-multigrid transfer tables (unstructured/pmg.py), in local
+    # indices (the whole mesh's or a strip's):
     #   pmg_vert:   v-node -> its P1 (vertex) node, sentinel n_nodes_p
     #   pmg_edge:   midpoint v-node -> its edge's endpoint P1 nodes,
-    #               sentinel n_nodes_p on vertex nodes
-    #   pmg_vert_v: P1 node -> its v-node
+    #               sentinel n_nodes_p on vertex and padding nodes
+    #   pmg_vert_v: P1 node -> its v-node, sentinel n_nodes_v on a strip's
+    #               padding
     #   pmg_mid:    P1 node -> adjacent midpoint v-nodes (padded),
     #               sentinel n_nodes_v
     pmg_vert: torch.Tensor  # [n_nodes_v]
@@ -124,6 +155,15 @@ class SimplexDisc:
     dense_lp_inv: torch.Tensor | None = None
     # the P2 -> P1 p-multigrid velocity preconditioner (unstructured/pmg.py)
     p_mg: bool = False
+    # x-strip decomposition (dist/simplex.py): the strip count, this
+    # strip's index, the velocity / pressure seam tables and the rank mesh
+    # of the collectives (a dist.Mesh; None builds a strip without
+    # collectives, e.g. to compare tables).  No strips: 1, 0, None, None.
+    halo_n: int = 1
+    halo_ix: int = 0
+    seam_v: SeamTables | None = None
+    seam_p: SeamTables | None = None
+    mesh: object = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -137,6 +177,19 @@ class SimplexDisc:
     @property
     def mg(self):
         return None
+
+    @property
+    def decomposed(self) -> bool:
+        """True on an x-strip of a decomposed mesh."""
+        return self.seam_v is not None
+
+    @property
+    def halo_ny(self) -> int:
+        return 1
+
+    @property
+    def halo_iy(self) -> int:
+        return 0
 
     @property
     def NV(self) -> tuple[int]:
@@ -222,13 +275,20 @@ class SimplexDisc:
     @functools.cached_property
     def p_free(self) -> torch.Tensor:
         """Pressure nodes off the outlet: the rows the pressure Laplacian,
-        ``apply_Fp`` and ``apply_Mp_raw`` do not eliminate."""
-        return ~self.p_outlet
+        ``apply_Fp`` and ``apply_Mp_raw`` do not eliminate.  A strip's
+        padding slots (weight 0, outlet-flagged) touch no element and stay
+        identity rows."""
+        free = ~self.p_outlet
+        if self.seam_p is not None:
+            free = free & (self.seam_p.weight > 0)
+        return free
 
     @functools.cached_property
     def u_dirichlet_p1(self) -> torch.Tensor:
-        """The Dirichlet mask on the P1 (vertex) velocity nodes."""
-        return self.u_dirichlet[self.pmg_vert_v]
+        """The Dirichlet mask on the P1 (vertex) velocity nodes (False on a
+        strip's padding)."""
+        pad = torch.zeros(1, dtype=torch.bool, device=self.device)
+        return torch.cat([self.u_dirichlet, pad])[self.pmg_vert_v]
 
     def replace(self, **kw) -> "SimplexDisc":
         return dataclasses.replace(self, **kw)
@@ -242,6 +302,9 @@ class SimplexDisc:
         for f in _OPTIONAL_FLOAT_FIELDS:
             v = getattr(self, f)
             kw[f] = None if v is None else v.to(dtype)
+        for f in ("seam_v", "seam_p"):
+            v = getattr(self, f)
+            kw[f] = None if v is None else dataclasses.replace(v, weight=v.weight.to(dtype))
         return dataclasses.replace(self, **kw)
 
 

@@ -166,7 +166,7 @@ def test_main_prints_the_jax_cli_lift_and_drag(capsys, monkeypatch):
 
 
 UNPORTED_FLAGS = [  # (CLI module, flags, ROADMAP item the error must name)
-    (t_stationary, ["-M", "--dd", "2"], "A.D9b"),  # -M x-strips
+    (t_stationary, ["-M", "--dd", "2,2"], "1-D (x-strips)"),  # -M decomposes into x-strips only
     (t_stationary, ["--ir", "mixed"], "A.14"),
 ]
 
@@ -178,10 +178,10 @@ def test_unported_flags_stop_naming_their_item():
         with pytest.raises(NotImplementedError, match=re.escape(item)):
             cli.main(["-m", "16,8", "--quiet"] + flags + CPU)
     out = subprocess.run(
-        [sys.executable, "-m", "navier_stokes_solver_tpu_torch.cli.unsteady", "-M", "--dd", "2", "--quiet"] + CPU,
+        [sys.executable, "-m", "navier_stokes_solver_tpu_torch.cli.unsteady", "--ir", "mixed", "--quiet"] + CPU,
         cwd=ROOT, capture_output=True, text=True, timeout=300, env={**os.environ, "PYTHONPATH": ROOT},
     )
-    assert out.returncode != 0 and "A.D9b" in out.stderr and out.stdout == ""
+    assert out.returncode != 0 and "A.14" in out.stderr and out.stdout == ""
     for unsteady in (False, True):
         opts = t_parse(["-m", "16,16", "--cavity", "--output", "--quiet"] + CPU, unsteady=unsteady)
         assert (opts.geometry, opts.write_output) == ("cavity", True)

@@ -7,7 +7,7 @@ runs here, on the virtual CPU devices of ``conftest.py``, inside
 ``shard_map``.  Everything is f64 at 16x8 Q2/Q1: tiles and round trips bit
 for bit or to 1e-14, operators to 1e-12, capped tangent solves to 1e-10
 with equal counts; the whole runs are in ``tests/test_torch_dist_runs.py``.  The -M simplex x-strips
-are not ported (ROADMAP.md A.D9b).
+are in ``tests/test_torch_dist_simplex.py``.
 """
 
 from __future__ import annotations
@@ -325,13 +325,14 @@ def test_cli_dd_spawns_its_ranks_and_writes_tile_pieces(tmp_path, capfd):
 
 def test_dd_refusals():
     """Outside a process group the dd options raise; a mesh needs exactly
-    its ranks; -M with dd raises naming A.D9b; dd rejects the direct LU."""
+    its ranks; -M with a 2-D tile grid raises the 1-D (x-strips) refusal;
+    dd rejects the direct LU."""
     from navier_stokes_solver_tpu_torch.precond.blocks import direct_lu_eligible
 
     with pytest.raises(RuntimeError, match="process group"):
         NSSolver(SolverOptions(device="cpu", dd=(2, 1)))
-    with pytest.raises(NotImplementedError, match="A.D9b"):
-        NSSolver(SolverOptions(device="cpu", dd=(2, 1), read_mesh_from_file=True))
+    with pytest.raises(NotImplementedError, match=re.escape("simplex decomposition is 1-D (x-strips)")):
+        NSSolver(SolverOptions(device="cpu", dd=(2, 2), read_mesh_from_file=True))
     with pytest.raises(ValueError, match="needs dd"):
         NSSolver(SolverOptions(device=["cpu", "cpu"]))
     assert "needs 4 ranks" in dist.launch(W.mesh_errors_rank, 2)[0]
@@ -377,7 +378,8 @@ def test_port_imports_no_jax():
     """Neither the port nor ``chip_smoke.py`` nor the rank functions import
     JAX or the JAX package."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|navier_stokes_solver_tpu)(\b|\.)(?!_torch)", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "_torch_dd.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "_torch_dd.py"),
+             os.path.join(ROOT, "tests", "_torch_dd_simplex.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "navier_stokes_solver_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     bad = []

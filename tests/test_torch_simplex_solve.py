@@ -2,8 +2,8 @@
 the JAX package, on the CPU.
 
 * ``SolverOptions(read_mesh_from_file=True)`` flips the degrees to P2/P1 as
-  the JAX package does; ``-M`` still refuses ``dd``, ``fused`` and VTU
-  output, naming their ROADMAP items.
+  the JAX package does; ``-M`` refuses a 2-D tile grid (it decomposes into
+  x-strips only) and writes its VTU piece.
 * The stationary continuation on the triangulated 16x8 channel, Re 20,
   FGMRES + blockTriangular with the p-multigrid velocity leg and the dense
   Schur legs, all-f64 but for the dense legs' f32 products (as in the JAX
@@ -98,8 +98,8 @@ def test_options_select_the_simplex_backend(tmp_path):
     assert s.n_dofs == 2 * s.disc.n_nodes_v + s.disc.n_nodes_p == 1269
     u, p = s.fields()
     assert u.shape == (2, s.disc.n_nodes_v) and p.shape == (s.disc.n_nodes_p,)
-    with pytest.raises(NotImplementedError, match="A.D9"):
-        NSSolverStationary(SolverOptions(**BASE, dd=(2, 1), device="cpu"))
+    with pytest.raises(NotImplementedError, match=r"1-D \(x-strips\)"):
+        NSSolverStationary(SolverOptions(**BASE, dd=(2, 2), device="cpu"))
     out = NSSolverStationary(SolverOptions(**BASE, write_output=True, output_dir=str(tmp_path), device="cpu")).setup()
     out.output()
     assert [p.name for p in tmp_path.iterdir()] == ["output_000.0.vtu"]

@@ -131,7 +131,7 @@ def test_state_from_numpy_residual_and_forces(pair):
 
 
 OUTSIDE_THE_SLICE = [  # (option, ROADMAP item the message must name)
-    (dict(dd=(2, 1), read_mesh_from_file=True), "A.D9b"),  # -M x-strips
+    (dict(dd=(2, 2), read_mesh_from_file=True), r"1-D \(x-strips\)"),  # -M decomposes into x-strips only
 ]
 
 

@@ -175,7 +175,7 @@ def test_lift_drag_files_match_the_jax_package(tmp_path):
 
 
 OUTSIDE_THE_PATH = [  # (option, ROADMAP item the message must name)
-    (dict(dd=(2, 1), read_mesh_from_file=True), "A.D9b"),  # -M x-strips
+    (dict(dd=(2, 2), read_mesh_from_file=True), r"1-D \(x-strips\)"),  # -M decomposes into x-strips only
 ]
 
 
